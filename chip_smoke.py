@@ -1,26 +1,34 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA Hopper GPU.
 
-    python3 chip_smoke.py              # 256^3 main path (the default)
-    python3 chip_smoke.py --size 512   # the same phase at 512^3
+    python3 chip_smoke.py              # 256^3 main paths (the default)
+    python3 chip_smoke.py --size 512   # the same phases at 512^3
 
-Phases, one line of output each (any failure exits non-zero):
+Phases, one or more lines of output each (any failure exits non-zero):
 
 1. device   -- a CUDA device of capability 9.0 (H100); its name and power
                limit as nvidia-smi reports them.
 2. build    -- the kernels under flowdenoising_tpu_torch/csrc, compiled
-               with nvcc for sm_90a.
-3. kernels  -- K-sample and K-umuf against their plain PyTorch versions on
-               the card, at the shapes the main path gives them, with the
-               tolerances of the JAX package's own kernel tests; times of
-               both.
-4. main     -- the CLI's flow denoise (python -m flowdenoising_tpu_torch ...
-               -s 2 2 2 --max_displacement 8) on a seeded size^3 blob
-               volume with noise, through MRC files; the launch counts of
-               both kernels must be what the tap and level loops imply, the
-               output finite and closer to the clean volume than the input.
-               Then a warm timed run of ``denoise``.
+               with nvcc for sm_90a (one compiler per source, in parallel).
+3. kernels  -- K-sample, K-umuf and K-compose against their plain PyTorch
+               versions on the card, at the shapes the main paths give them,
+               with the tolerances of the JAX package's own kernel tests;
+               times of both, the least time the card could take for the
+               same work (bound), and for K-sample the time of
+               torch.nn.functional.grid_sample on the same sampling (the
+               port never calls it).
+4. main     -- three paths through the CLI (python -m flowdenoising_tpu_torch
+               ... -s 2 2 2 --max_displacement 8) on a seeded size^3 blob
+               volume with noise, through MRC files: solve mode, compose
+               mode (--tap_flow compose) and compose with
+               --symmetric_adjacent.  Each path runs with the launch counts
+               set to 0 just before it; the counts must be what its tap and
+               level loops imply, the output finite and closer to the clean
+               volume than the input.  Then a warm timed run of ``denoise``
+               per path, and a torch.profiler run of solve and compose for
+               the device-time split.
 5. e2e      -- a 24x96x96 volume through ``denoise`` on the card (kernels)
-               and on the CPU (plain versions): PSNR >= 55 dB between them.
+               and on the CPU (plain versions), in solve and in compose
+               mode: PSNR >= 55 dB between them.
 
 The last lines are the card's nvidia-smi line, a JSON object of the kernels
 and, last, ``{"ok": true, "device": {...}}``.
@@ -67,6 +75,35 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# Published peaks of one H100 SXM at its 700 W limit: HBM bytes/s and
+# float32 flop/s outside the tensor cores (none of the kernels has a
+# matrix product).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time in ms the card could take for work that must move
+    ``nbytes`` (each input read once, each output written once) and do
+    ``flops``, and which of the two bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# float32 operations per output element, counted from the kernels' sources
+# (compares, floors and casts counted as one each).
+SAMPLE_FLOPS = 10 + 6          # clamp, coordinates, floor, fractions; 3 lerps
+COMPOSE_FLOPS = 2 * 10 + 2 * 6 + 2 + 6 + 2   # two footprints, 2 + 1 samples, add, fma
+
+
+def umuf_flops(winsize: int) -> int:
+    """Per pixel and iteration: ~70 in phase 1 (footprint, five sampled
+    channels, M), 5 * winsize^2 adds and 5 scales in the box sum, ~12 in
+    the 2x2 solve."""
+    return 70 + 5 * winsize * winsize + 5 + 12
 
 
 def blob_volume(n: int, h: int, w: int, seed: int, drift: float = 0.7):
@@ -129,6 +166,8 @@ def phase_build() -> None:
 
 def phase_kernels(dev, seed: int) -> dict:
     from flowdenoising_tpu_torch.ops import farneback as F
+    from flowdenoising_tpu_torch.ops.cuda.compose import (
+        compose_tap, compose_tap_plain)
     from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
     from flowdenoising_tpu_torch.ops.warp import (
         displace_sample, displace_sample_plain)
@@ -138,6 +177,13 @@ def phase_kernels(dev, seed: int) -> dict:
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    def banded_flow(n, h, w, d, scale=3.0):
+        """Flows N(0, scale) (n, 2, h, w) with a band pushed beyond +-d."""
+        f = r.normal(size=(n, 2, h, w)) * scale
+        f[:, 0, : h // 4] += 3 * (d or 8)
+        f[:, 1, :, : w // 4] -= 3 * (d or 8)
+        return t(f)
 
     # K-sample: (64, 1, 256, 256) at D=8 and no bound; flows N(0, 3) with a
     # band pushed beyond +-D; data of scale ~50; atol 2e-4
@@ -170,10 +216,30 @@ def phase_kernels(dev, seed: int) -> dict:
     require(e <= 2e-4, f"K-sample main shape: max abs err {e} > 2e-4")
     ms = cuda_ms(lambda: displace_sample(src, flow[:, 0], flow[:, 1], 8))
     pms = cuda_ms(lambda: displace_sample_plain(src, flow[:, 0], flow[:, 1], 8), reps=3)
+    # the library yardstick: grid_sample on the clamped flow, in normalised
+    # coordinates (align_corners: -1 and 1 are the edge texel centres;
+    # border padding replicates the edge)
+    n, h, w = src.shape
+    fc = flow.clamp(-8.0, 8.0)
+    gx = torch.arange(w, device=dev, dtype=torch.float32) + fc[:, 0]
+    gy = torch.arange(h, device=dev, dtype=torch.float32)[:, None] + fc[:, 1]
+    grid = torch.stack([gx * (2.0 / (w - 1)) - 1.0, gy * (2.0 / (h - 1)) - 1.0], -1)
+    src4 = src[:, None]
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            src4, grid, mode="bilinear", padding_mode="border", align_corners=True)
+
+    lms = cuda_ms(library)
+    lib_err = float((library()[:, 0] - out).abs().max())
+    bms, by = bound(4 * (2 * src.numel() + flow.numel()), SAMPLE_FLOPS * src.numel())
     print(f"[3 kernels] K-sample main-path call (256,256,256) D=8: max_abs_err "
-          f"{e:.3g}, kernel {ms:.4f} ms, plain {pms:.4f} ms", flush=True)
-    res["sample"] = dict(max_abs_err=max(err, e), ms=ms, plain_ms=pms)
-    del src, flow, out, ref
+          f"{e:.3g}, kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}), grid_sample {lms:.4f} ms (max abs diff to the kernel "
+          f"{lib_err:.3g})", flush=True)
+    res["sample"] = dict(max_abs_err=max(err, e), ms=ms, plain_ms=pms,
+                         bound_ms=bms, bound_by=by, library_ms=lms)
+    del src, flow, out, ref, fc, gx, gy, grid, src4
 
     # K-umuf: batch 16 at every level of a 256^2 plane with its d_k, iters 3,
     # winsize 5 and 7; atol 5e-4, rtol 1e-4
@@ -212,27 +278,138 @@ def phase_kernels(dev, seed: int) -> dict:
     ms = cuda_ms(lambda: umuf_iterate(rr[0], rr[1], flow, 3, 9, 5), reps=5)
     pms = cuda_ms(lambda: F.umuf_iterate_plain(rr[0], rr[1], flow, 3, 9, 5),
                   reps=2, warmup=1)
+    # the function is 3 chained iterations: r0, r1 and the flow read once,
+    # the flow written once
+    px = flow.numel() // 2
+    bms, by = bound(4 * (2 * rr[0].numel() + 2 * flow.numel()), 3 * umuf_flops(5) * px)
     print(f"[3 kernels] K-umuf main-path call (256,5,256,256) d=9 ws=5 iters=3: "
-          f"max_abs_err {e:.3g}, kernel {ms:.4f} ms, plain {pms:.4f} ms", flush=True)
-    res["umuf"] = dict(max_abs_err=max(err, e), ms=ms, plain_ms=pms)
+          f"max_abs_err {e:.3g}, kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}); no single library call", flush=True)
+    res["umuf"] = dict(max_abs_err=max(err, e), ms=ms, plain_ms=pms,
+                       bound_ms=bms, bound_by=by, library_ms=None)
+    del rr, flow, out, ref, diff
+
+    # K-compose: flow atol 1e-5, accumulator atol 1e-4 (the bars of the JAX
+    # package's compose kernel test); links of scale 0.6 (adjacent drift),
+    # neighbours of scale ~50; stacks longer than the batch, read at offsets
+    def compose_case(n, h, w, d, extra, link_start, nb_start, reps):
+        link = t(r.normal(size=(n + extra, 2, h, w)) * 0.6)
+        nb = t(r.normal(size=(n + extra + 1, h, w)) * 50)
+        flow = banded_flow(n, h, w, d)
+        acc = t(r.normal(size=(n, h, w)) * 20)
+        wgt = float(np.float32(0.0702))
+        fr, ar = compose_tap_plain(link[link_start:link_start + n], flow,
+                                   nb[nb_start:nb_start + n], acc, wgt, d)
+        fk, ak = flow.clone(), acc.clone()
+        compose_tap(link, fk, nb, ak, wgt, d, link_start, nb_start)
+        torch.cuda.synchronize()
+        ef = float((fk - fr).abs().max())
+        ea = float((ak - ar).abs().max())
+        require(ef <= 1e-5 and ea <= 1e-4,
+                f"K-compose ({n},{h},{w}) D={d}: max abs err flow {ef}, acc {ea}")
+        # the kernel updates fk, ak in place on every timed call
+        ms = cuda_ms(lambda: compose_tap(link, fk, nb, ak, wgt, d, link_start,
+                                         nb_start), reps=reps)
+        pms = cuda_ms(lambda: compose_tap_plain(
+            link[link_start:link_start + n], flow, nb[nb_start:nb_start + n],
+            acc, wgt, d), reps=3)
+        # flow and accumulator read and written, n link planes and n
+        # neighbour planes read once
+        bms, by = bound(4 * (2 * flow.numel() + 2 * acc.numel() + flow.numel()
+                             + acc.numel()), COMPOSE_FLOPS * acc.numel())
+        print(f"[3 kernels] K-compose ({n},{h},{w}) D={d} link/nb stacks "
+              f"{link.shape[0]}/{nb.shape[0]} at {link_start}/{nb_start}: max_abs_err "
+              f"flow {ef:.3g} acc {ea:.3g}, kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}); no single library call", flush=True)
+        return max(ef, ea), ms, pms, bms, by
+
+    err = 0.0
+    for d in (8, None):
+        err = max(err, compose_case(16, 256, 256, d, 3, 2, 3, reps=10)[0])
+    # the main path's call at 256^3: one tap of a pass, n 256, a 271-plane
+    # link stack and the 272-plane padded stack, a mid-run tap's offsets
+    e, ms, pms, bms, by = compose_case(256, 256, 256, 8, 15, 7, 8, reps=10)
+    res["compose"] = dict(max_abs_err=max(err, e), ms=ms, plain_ms=pms,
+                          bound_ms=bms, bound_by=by, library_ms=None)
     return res
 
 
 def expected_launches(shape, cfg) -> dict:
-    """Launches the tap and level loops imply for one denoise of ``shape``."""
+    """Launches the tap and level loops imply for one denoise of ``shape``:
+    solve mode solves every tap pair and warps with K-sample; compose mode
+    solves the adjacent pairs once per direction (once with
+    symmetric_adjacent) and runs one K-compose per tap."""
     from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
     planes = [(shape[1], shape[2]), (shape[0], shape[2]), (shape[0], shape[1])]
-    n = {"sample": 0, "umuf": 0}
+    f = cfg.flow
+    n = {"compose": 0, "sample": 0, "umuf": 0}
     for taps, (h, w) in zip(get_gaussian_kernels(cfg.sigma), planes):
         n_taps = len(taps) - 1
-        n["sample"] += n_taps
-        n["umuf"] += n_taps * (cfg.flow.clamped_levels(h, w) + 1) * cfg.flow.iterations
+        per_solve = (f.clamped_levels(h, w) + 1) * f.iterations
+        if f.tap_mode == "compose":
+            n["compose"] += n_taps
+            n["umuf"] += (1 if f.symmetric_adjacent else 2) * per_solve
+        else:
+            n["sample"] += n_taps
+            n["umuf"] += n_taps * per_solve
     return n
 
 
+def kernel_family(name: str) -> str:
+    """A device kernel's family, for the device-time split."""
+    low = name.lower()
+    for key, family in (("compose_kernel", "K-compose"), ("umuf_kernel", "K-umuf"),
+                        ("sample_kernel", "K-sample"), ("memcpy", "memcpy"),
+                        ("memset", "memset"), ("gemm", "matmul (resize einsums)"),
+                        ("xmma", "matmul (resize einsums)"),
+                        ("cutlass", "matmul (resize einsums)"),
+                        ("gather", "gather/index"), ("index", "gather/index"),
+                        ("elementwise", "elementwise"), ("reduce", "reductions"),
+                        ("copy", "copies"), ("cat", "copies")):
+        if key in low:
+            return family
+    return "other"
+
+
+def device_split(fn) -> tuple[float, float, list]:
+    """torch.profiler over one ``fn()``: (device busy ms, profiled wall ms,
+    [(family, ms, launches)] by device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    fam = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        key = kernel_family(ev.name)
+        ms, count = fam.get(key, (0.0, 0))
+        fam[key] = (ms + ev.time_range.elapsed_us() / 1e3, count + 1)
+    busy = sum(ms for ms, _ in fam.values())
+    require(busy > 0, "the profiler recorded no device time")
+    return busy, wall, sorted(((k, ms, c) for k, (ms, c) in fam.items()),
+                              key=lambda x: -x[1])
+
+
+PATHS = {
+    # name: (CLI flags beyond -s 2 2 2 --max_displacement 8, FlowConfig fields)
+    "solve": ([], {}),
+    "compose": (["--tap_flow", "compose"], {"tap_mode": "compose"}),
+    "compose_symmetric": (["--tap_flow", "compose", "--symmetric_adjacent"],
+                          {"tap_mode": "compose", "symmetric_adjacent": True}),
+}
+
+
 def phase_main(dev, size: int, seed: int) -> dict:
+    """Every path of PATHS through the CLI, then warm; returns each path's
+    launch counts."""
     from flowdenoising_tpu_torch import cli
-    from flowdenoising_tpu_torch.config import FilterConfig
+    from flowdenoising_tpu_torch.config import FilterConfig, FlowConfig
     from flowdenoising_tpu_torch.core.pipeline import denoise
     from flowdenoising_tpu_torch.io.mrc import read_mrc, write_mrc
     from flowdenoising_tpu_torch.ops import cuda as K
@@ -243,57 +420,75 @@ def phase_main(dev, size: int, seed: int) -> dict:
     # on the CPU path)
     noisy = clean + np.random.default_rng(seed + 1).normal(
         0.0, 40.0, clean.shape).astype(np.float32)
-    cfg = FilterConfig()   # sigma 2, wrap, D = 8, solve, float32
+    p_in = psnr(noisy, clean)
+    counts = {}
     with tempfile.TemporaryDirectory() as tmp:
-        src, dst = Path(tmp) / "noisy.mrc", Path(tmp) / "denoised.mrc"
+        src = Path(tmp) / "noisy.mrc"
         write_mrc(src, noisy)
-        K.reset_launches()
-        t0 = time.perf_counter()
-        rc = cli.main(["-i", str(src), "-o", str(dst), "-s", "2", "2", "2",
-                       "--max_displacement", "8", "-v", "1"])
-        cold = time.perf_counter() - t0
-        launches = dict(K.LAUNCHES)
-        require(rc == 0, f"cli.main returned {rc}")
-        out, _ = read_mrc(dst)
-    want = expected_launches(clean.shape, cfg)
-    require(launches == want, f"launch counts {launches}, expected {want}")
-    require(out.shape == clean.shape, f"output shape {out.shape}")
-    require(bool(np.isfinite(out).all()), "non-finite output")
-    p_in, p_out = psnr(noisy, clean), psnr(out, clean)
-    require(p_out > p_in, f"PSNR vs clean {p_out:.2f} dB <= input's {p_in:.2f} dB")
+        for name, (flags, fields) in PATHS.items():
+            # sigma 2, wrap, D = 8, float32
+            cfg = FilterConfig(flow=FlowConfig(**fields))
+            dst = Path(tmp) / f"denoised_{name}.mrc"
+            K.reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main(["-i", str(src), "-o", str(dst), "-s", "2", "2", "2",
+                           "--max_displacement", "8", "-v", "1", *flags])
+            cold = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+            require(rc == 0, f"{name}: cli.main returned {rc}")
+            out, _ = read_mrc(dst)
+            want = expected_launches(clean.shape, cfg)
+            require(launches == want,
+                    f"{name}: launch counts {launches}, expected {want}")
+            require(out.shape == clean.shape, f"{name}: output shape {out.shape}")
+            require(bool(np.isfinite(out).all()), f"{name}: non-finite output")
+            p_out = psnr(out, clean)
+            require(p_out > p_in, f"{name}: PSNR vs clean {p_out:.2f} dB <= "
+                    f"input's {p_in:.2f} dB")
 
-    vol = torch.from_numpy(noisy).to(dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    warm = denoise(vol, cfg)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    rerun = float(np.abs(warm.cpu().numpy() - out).max())
-    mvox = clean.size / secs / 1e6
-    print(f"[4 main] {size}^3 CLI solve denoise (sigma 2, D=8, wrap): launches "
-          f"{launches} as expected; PSNR vs clean {p_in:.2f} -> {p_out:.2f} dB; "
-          f"CLI run {cold:.2f} s (cold, incl. I/O); warm denoise {secs:.3f} s = "
-          f"{mvox:.2f} Mvoxel/s; peak device memory {peak / 2**30:.2f} GiB; "
-          f"warm vs CLI output max abs diff {rerun:.3g}", flush=True)
-    return launches
+            vol = torch.from_numpy(noisy).to(dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            warm = denoise(vol, cfg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            rerun = float(np.abs(warm.cpu().numpy() - out).max())
+            print(f"[4 main] {size}^3 CLI {name} denoise (sigma 2, D=8, wrap): "
+                  f"launches {launches} as expected; PSNR vs clean {p_in:.2f} -> "
+                  f"{p_out:.2f} dB; CLI run {cold:.2f} s (cold, incl. I/O); warm "
+                  f"denoise {secs:.3f} s = {clean.size / secs / 1e6:.2f} Mvoxel/s; "
+                  f"peak device memory {peak / 2**30:.2f} GiB; warm vs CLI output "
+                  f"max abs diff {rerun:.3g}", flush=True)
+            if name != "compose_symmetric":
+                busy, wall, fams = device_split(lambda: denoise(vol, cfg))
+                split = "; ".join(f"{k} {ms:.1f} ms ({100 * ms / busy:.1f}%, {c})"
+                                  for k, ms, c in fams)
+                print(f"[4 main] {size}^3 {name} device-time split (torch.profiler, "
+                      f"one warm denoise): busy {busy:.1f} ms of {wall:.1f} ms "
+                      f"profiled wall (idle {100 * (1 - busy / wall):.1f}%): {split}",
+                      flush=True)
+            del vol, warm
+            counts[name] = launches
+    return counts
 
 
 def phase_e2e(dev, seed: int) -> None:
-    from flowdenoising_tpu_torch.config import FilterConfig
+    from flowdenoising_tpu_torch.config import FilterConfig, FlowConfig
     from flowdenoising_tpu_torch.core.pipeline import denoise
 
     vol = blob_volume(24, 96, 96, seed + 2)
     vol += np.random.default_rng(seed + 3).normal(0, 20, vol.shape).astype(np.float32)
-    cfg = FilterConfig()
-    on_card = denoise(torch.from_numpy(vol).to(dev), cfg).cpu().numpy()
-    on_cpu = denoise(torch.from_numpy(vol), cfg).numpy()
-    p = psnr(on_card, on_cpu)
-    require(p >= 55.0, f"card vs CPU PSNR {p:.2f} dB < 55")
-    print(f"[5 e2e] 24x96x96 denoise, card (kernels) vs CPU (plain): PSNR "
-          f"{p:.2f} dB (bar 55); max abs diff "
-          f"{float(np.abs(on_card - on_cpu).max()):.3g}", flush=True)
+    for mode in ("solve", "compose"):
+        cfg = FilterConfig(flow=FlowConfig(tap_mode=mode))
+        on_card = denoise(vol, cfg, device=dev).cpu().numpy()
+        on_cpu = denoise(vol, cfg, device="cpu").numpy()
+        p = psnr(on_card, on_cpu)
+        require(p >= 55.0, f"{mode}: card vs CPU PSNR {p:.2f} dB < 55")
+        print(f"[5 e2e] 24x96x96 {mode} denoise, card (kernels) vs CPU (plain): "
+              f"PSNR {p:.2f} dB (bar 55); max abs diff "
+              f"{float(np.abs(on_card - on_cpu).max()):.3g}", flush=True)
 
 
 def main() -> int:
@@ -308,18 +503,24 @@ def main() -> int:
     phase_build()
     kern = phase_kernels(dev, args.seed)
     torch.cuda.empty_cache()
-    launches = phase_main(dev, args.size, args.seed)
+    counts = phase_main(dev, args.size, args.seed)
     phase_e2e(dev, args.seed)
 
-    sources = {"sample": ("flowdenoising_tpu_torch/csrc/sample.cu",
-                          "flowdenoising_tpu/ops/pallas/sample.py:99"),
-               "umuf": ("flowdenoising_tpu_torch/csrc/umuf.cu",
-                        "flowdenoising_tpu/ops/pallas/umuf.py:87")}
+    # each kernel's launches from the path that defines it: K-umuf and
+    # K-sample from solve mode, K-compose from compose mode
+    kernels = {
+        "umuf": ("flowdenoising_tpu_torch/csrc/umuf.cu",
+                 "flowdenoising_tpu/ops/pallas/umuf.py:87", "solve"),
+        "sample": ("flowdenoising_tpu_torch/csrc/sample.cu",
+                   "flowdenoising_tpu/ops/pallas/sample.py:99", "solve"),
+        "compose": ("flowdenoising_tpu_torch/csrc/compose.cu",
+                    "flowdenoising_tpu/ops/pallas/compose.py:141", "compose"),
+    }
     print(card)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": sources[name][0],
-         "replaces": sources[name][1], "launches": launches[name], **kern[name]}
-        for name in ("umuf", "sample")]}))
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": counts[path][name], **kern[name]}
+        for name, (source, replaces, path) in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,14 +3,16 @@ denoising of volumetric microscopy data on an NVIDIA Hopper GPU.
 
 The port of the JAX package ``flowdenoising_tpu`` (kept beside it as the
 reference).  It imports ``torch`` and neither ``jax`` nor
-``flowdenoising_tpu``.  Its main path is the solve-mode flow denoise:
+``flowdenoising_tpu``.  Its main path is the flow denoise, in the solve and
+the compose tap modes; ``denoise`` runs on the input tensor's device, or on
+CUDA for an array unless ``device="cpu"`` is passed:
 
 - ``flowdenoising_tpu_torch.core``  -- per-axis passes and the Z -> Y -> X
   pipeline;
 - ``flowdenoising_tpu_torch.ops``   -- resize, blur, warp and Farneback
-  flow, with the hand-written CUDA kernels K-umuf (one Farneback iteration)
-  and K-sample (the tap warp) under ``ops.cuda`` and their plain PyTorch
-  versions beside them;
+  flow, with the hand-written CUDA kernels K-umuf (one Farneback iteration),
+  K-sample (the solve-mode tap warp) and K-compose (the compose-mode tap)
+  under ``ops.cuda`` and their plain PyTorch versions beside them;
 - ``flowdenoising_tpu_torch.io``    -- MRC2014 and TIFF volume I/O;
 - ``flowdenoising_tpu_torch.cli``   -- the reference-compatible CLI.
 """

@@ -4,10 +4,11 @@
 Usage:
     python -m flowdenoising_tpu_torch -i vol.mrc -o denoised.mrc -s 2 2 2
 
-The port runs the solve-mode flow denoise (and ``-n``) in float32 on one
-device, in memory, with a fixed displacement bound (default 8; 0 means no
-bound).  Every flag of a feature not yet ported exits with a message naming
-its ROADMAP item; none is ignored.  ``--device`` picks the device: ``cuda``
+The port runs the flow denoise in both tap modes (``--tap_flow solve``,
+the default, and ``--tap_flow compose`` with ``--symmetric_adjacent``) and
+``-n``, in float32 on one device, in memory, with a fixed displacement
+bound (default 8; 0 means no bound).  Every flag of a feature not yet
+ported exits with a message naming its ROADMAP item; none is ignored.  ``--device`` picks the device: ``cuda``
 (the default) runs the CUDA kernels and fails without a CUDA device;
 ``cpu`` runs their plain PyTorch versions.
 """
@@ -89,7 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Flow inner-pass precision (bfloat16 not yet ported, ROADMAP A9)")
     p.add_argument("--tap_flow", choices=["solve", "compose"], default="solve",
                    help="Per-tap flow strategy: 'solve' = one Farneback solve per "
-                        "tap pair ('compose' not yet ported, ROADMAP A9)")
+                        "tap pair; 'compose' = one solve per adjacent slice pair "
+                        "and direction, farther taps' flows composed from them")
     p.add_argument("--max_displacement", type=int_or_str, default=MAX_DISPLACEMENT,
                    help="Per-tap flow sampling bound in pixels; motions beyond it "
                         "are clamped during sampling.  0 = no bound (exact "
@@ -98,7 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Estimate flows from an in-plane pre-smoothed copy "
                         "(not yet ported, ROADMAP A8); 0 = off")
     p.add_argument("--symmetric_adjacent", action="store_true",
-                   help="Compose mode option (not yet ported, ROADMAP A9)")
+                   help="Compose mode: take the backward adjacent flows as the "
+                        "negated forward ones (one adjacent solve per pass "
+                        "instead of two)")
     p.add_argument("--checkpoint_dir", type=str, default=None,
                    help="Per-pass checkpoints (not yet ported, ROADMAP A10)")
     p.add_argument("--stream", action="store_true",
@@ -129,9 +133,6 @@ def _refuse_unported(args) -> None:
         raise SystemExit(f"--max_displacement must be an integer, got {md!r}")
     if args.flow_presmooth != 0.0:
         raise SystemExit("--flow_presmooth is not yet ported (ROADMAP A8)")
-    if args.tap_flow != "solve" or args.symmetric_adjacent:
-        raise SystemExit("--tap_flow compose and --symmetric_adjacent are "
-                         "not yet ported (ROADMAP A9)")
     if args.dtype != "float32" or args.precision != "float32":
         raise SystemExit("--dtype/--precision bfloat16 is not yet ported "
                          "(ROADMAP A9)")
@@ -189,6 +190,8 @@ def main(argv=None) -> int:
             winsize=int(args.winsize),
             use_initial_flow=not args.recompute_flow,
             max_displacement=md if md > 0 else None,
+            tap_mode=args.tap_flow,
+            symmetric_adjacent=args.symmetric_adjacent,
         ),
         slab_size=args.slab_size,
     )
@@ -236,10 +239,8 @@ def main(argv=None) -> int:
         def on_pass(i, _v):
             progress.advance(shape[i])
 
-        vol_t = torch.from_numpy(np.ascontiguousarray(vol)).to(device)
-        filtered = denoise(vol_t, cfg, kernels=kernels, on_pass=on_pass)
-        filtered = filtered.cpu().numpy()
-        del vol_t
+        filtered = denoise(vol, cfg, kernels=kernels, on_pass=on_pass,
+                           device=device).cpu().numpy()
 
     log_volume_stats(str(args.output), filtered)
 

@@ -66,9 +66,6 @@ class FlowConfig:
     def check_ported(self) -> None:
         """Raise NotImplementedError, naming the ROADMAP item, for settings
         the port does not run yet."""
-        if self.tap_mode != "solve":
-            raise NotImplementedError(
-                "tap_mode 'compose' is not yet ported (ROADMAP A9)")
         if self.dtype != "float32" or self.precision != "float32":
             raise NotImplementedError(
                 "bfloat16 dtype/precision is not yet ported (ROADMAP A9)")

@@ -1,15 +1,18 @@
 """Per-axis filtering passes along axis 0 of a (N, H, W) stack.
 
-Counterpart of ``flowdenoising_tpu/core/axis_filter.py`` (solve mode):
+Counterpart of ``flowdenoising_tpu/core/axis_filter.py``:
 
 - ``gaussian_pass_padded``: plain Gaussian correlation along the axis (the
   ``-n`` path).
-- ``of_pass_padded``: optical-flow-compensated accumulation.  For every
-  output slice and tap, Farneback flow from the slice to the tap's
-  neighbour is solved (seeded by the previous tap's flow), the neighbour is
-  warped onto the slice by that flow (K-sample), and added in with the tap
-  weight.  Flow is chained outward from the center in two runs and reset
-  to zero between them.
+- ``of_pass_padded``: optical-flow-compensated accumulation, in one of two
+  tap modes.  Solve (the default): for every output slice and tap,
+  Farneback flow from the slice to the tap's neighbour is solved (seeded by
+  the previous tap's flow), the neighbour is warped onto the slice by that
+  flow (K-sample), and added in with the tap weight.  Compose: Farneback
+  runs once per direction on every adjacent slice pair, and the flow to the
+  tap at distance j is composed from the chain of adjacent flows, one
+  K-compose launch per tap.  In both, flow is chained outward from the
+  center in two runs and reset to zero between them.
 
 All output slices of a pass form one batch; the expansion pyramid of every
 slice is built once per pass and shared by all taps.
@@ -17,11 +20,15 @@ slice is built once per pass and shared by all taps.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from flowdenoising_tpu_torch.config import Boundary, FlowConfig
-from flowdenoising_tpu_torch.ops.farneback import tap_solver
+from flowdenoising_tpu_torch.ops.cuda.compose import compose_tap
+from flowdenoising_tpu_torch.ops.farneback import (
+    flow_from_pyramids, polyexp_pyramid, tap_solver)
 from flowdenoising_tpu_torch.ops.warp import displace_sample
 
 
@@ -76,6 +83,8 @@ def of_pass_padded(padded: torch.Tensor, taps: np.ndarray,
     taps = np.asarray(taps, dtype=np.float64)
     if len(taps) % 2 != 1:
         raise ValueError("kernel size must be odd")
+    if flow_cfg.tap_mode == "compose":
+        return _of_pass_composed(padded, taps, flow_cfg)
     ks2 = len(taps) // 2
     n = padded.shape[0] - 2 * ks2
     solve = tap_solver(padded, ks2, n, flow_cfg)
@@ -88,4 +97,49 @@ def of_pass_padded(padded: torch.Tensor, taps: np.ndarray,
             warped = displace_sample(padded[start:start + n], flow[:, 0],
                                      flow[:, 1], flow_cfg.max_displacement)
             acc.add_(warped * float(np.float32(taps[ks2 + sign * j])))
+    return acc
+
+
+def _of_pass_composed(padded: torch.Tensor, taps: np.ndarray,
+                      flow_cfg: FlowConfig) -> torch.Tensor:
+    """Composed-flow pass (``tap_mode="compose"``), the counterpart of the
+    JAX package's ``_of_pass_composed``.
+
+    Farneback runs once per direction on all adjacent slice pairs of the
+    padded stack (``adj_fwd[k]``: slice k to k+1; ``adj_bwd[k]``: k+1 to
+    k, or ``-adj_fwd`` with ``symmetric_adjacent``), with the bound
+    tightened to ``min(D, adjacent_displacement)`` when both are set.  The
+    flow to the tap at distance j is composed outward, F_j = F_{j-1} +
+    warp(link, F_{j-1}), and each tap adds the neighbour warped by F_j
+    (K-compose).  The adjacent solves take no seed, so
+    ``use_initial_flow`` has no effect here.
+    """
+    ks2 = len(taps) // 2
+    n = padded.shape[0] - 2 * ks2
+    d = flow_cfg.max_displacement
+    adj_cfg = flow_cfg
+    if flow_cfg.adjacent_displacement is not None and d is not None:
+        adj_cfg = dataclasses.replace(
+            flow_cfg, max_displacement=min(d, flow_cfg.adjacent_displacement))
+    r_levels = polyexp_pyramid(padded, flow_cfg)
+    lo = [r[:-1] for r in r_levels]
+    hi = [r[1:] for r in r_levels]
+    adj_fwd = flow_from_pyramids(lo, hi, adj_cfg, None)
+    if flow_cfg.symmetric_adjacent:
+        adj_bwd = -adj_fwd
+    else:
+        adj_bwd = flow_from_pyramids(hi, lo, adj_cfg, None)
+    del r_levels, lo, hi
+
+    acc = padded[ks2:ks2 + n] * float(np.float32(taps[ks2]))
+    flow = torch.zeros((n, 2) + tuple(padded.shape[1:]), dtype=padded.dtype,
+                       device=padded.device)
+    # backward run: the link of distance j is adj_bwd[start]; forward run:
+    # adj_fwd[start - 1] (start = ks2 + offset, the neighbour's index)
+    for sign, adj, shift in ((-1, adj_bwd, 0), (+1, adj_fwd, -1)):
+        flow.zero_()
+        for j in range(1, ks2 + 1):
+            start = ks2 + sign * j
+            compose_tap(adj, flow, padded, acc, taps[ks2 + sign * j], d,
+                        start + shift, start)
     return acc

@@ -14,7 +14,9 @@ volume's mean in all three passes.  Passes run over the whole axis; an
 explicit ``slab_size`` runs each pass over axis-0 slabs (with the kernel
 support's halo), with results equal to the whole-axis pass.
 
-Everything runs on the device of the input tensor.
+Everything runs on the device of the input tensor; any other input (a
+numpy array) is taken to ``device``, CUDA unless the caller asks for the
+CPU.
 """
 
 from __future__ import annotations
@@ -49,9 +51,22 @@ def slabbed_padded_pass(padded_pass_fn, padded: torch.Tensor, taps,
     return torch.cat(outs, dim=0)[:n]
 
 
+def _as_volume(vol, device="cuda") -> torch.Tensor:
+    """``vol`` as a float32 tensor: a tensor stays on its own device, any
+    other input goes to ``device``.  Raises when that is a CUDA device and
+    none is available -- never a silent fall back to the CPU."""
+    if isinstance(vol, torch.Tensor):
+        return vol.to(torch.float32)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: no CUDA device is available "
+                           "(pass device=\"cpu\" to run the plain PyTorch "
+                           "versions on the CPU)")
+    return torch.as_tensor(vol, dtype=torch.float32, device=device)
+
+
 def _run_passes(vol: torch.Tensor, kernels, boundary: Boundary, slab_size,
                 padded_pass_fn, on_pass):
-    vol = torch.as_tensor(vol, dtype=torch.float32)
     mean_val = vol.mean() if boundary is Boundary.MEAN else None
     out = vol
     layout = (0, 1, 2)
@@ -72,34 +87,37 @@ def _run_passes(vol: torch.Tensor, kernels, boundary: Boundary, slab_size,
     return out.permute(tuple(layout.index(ax) for ax in (0, 1, 2))).contiguous()
 
 
-def gaussian_denoise(vol: torch.Tensor, sigma=(2.0, 2.0, 2.0),
+def gaussian_denoise(vol, sigma=(2.0, 2.0, 2.0),
                      boundary: Boundary = Boundary.WRAP,
                      slab_size: int | None = None, kernels=None,
-                     on_pass=None) -> torch.Tensor:
-    """No-OF separable 3-D Gaussian denoise (reference ``-n`` path)."""
+                     on_pass=None, device="cuda") -> torch.Tensor:
+    """No-OF separable 3-D Gaussian denoise (reference ``-n`` path).
+    ``vol`` and ``device`` as for ``denoise``."""
     kernels = get_gaussian_kernels(sigma) if kernels is None else kernels
-    return _run_passes(vol, kernels, boundary, slab_size,
+    return _run_passes(_as_volume(vol, device), kernels, boundary, slab_size,
                        gaussian_pass_padded, on_pass)
 
 
-def denoise(vol: torch.Tensor, cfg: FilterConfig = FilterConfig(),
-            kernels=None, on_pass=None) -> torch.Tensor:
+def denoise(vol, cfg: FilterConfig = FilterConfig(), kernels=None,
+            on_pass=None, device="cuda") -> torch.Tensor:
     """Full OF-compensated denoise: Z, Y, X passes of Farneback-compensated
     Gaussian accumulation (or the plain Gaussian when cfg.use_flow is
     False).
 
-    ``vol`` is a (Z, Y, X) tensor (a numpy array is taken onto the CPU);
-    the result is float32 on the same device.  ``on_pass(i, volume)`` is
-    called after pass i.  (Resuming at a later pass, the JAX package's
-    ``start_pass``/``mean_val``, comes with checkpoints: ROADMAP A10.)
+    ``vol`` is a (Z, Y, X) tensor, which is filtered on its own device, or
+    an array, which is taken to ``device`` (default CUDA; raises without a
+    CUDA device unless ``device="cpu"``).  The result is float32 on the
+    device the work ran on.  ``on_pass(i, volume)`` is called after pass i.
+    (Resuming at a later pass, the JAX package's ``start_pass``/
+    ``mean_val``, comes with checkpoints: ROADMAP A10.)
     """
     if not cfg.use_flow:
         return gaussian_denoise(vol, cfg.sigma, cfg.boundary, cfg.slab_size,
-                                kernels, on_pass=on_pass)
+                                kernels, on_pass=on_pass, device=device)
     kernels = get_gaussian_kernels(cfg.sigma) if kernels is None else kernels
 
     def of_pass(padded, taps):
         return of_pass_padded(padded, taps, cfg.flow)
 
-    return _run_passes(vol, kernels, cfg.boundary, cfg.slab_size, of_pass,
-                       on_pass)
+    return _run_passes(_as_volume(vol, device), kernels, cfg.boundary,
+                       cfg.slab_size, of_pass, on_pass)

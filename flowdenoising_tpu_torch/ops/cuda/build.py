@@ -2,9 +2,10 @@
 
 The sources ``flowdenoising_tpu_torch/csrc/*.cu`` expose a plain C
 interface.  At first use they are compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library,
+(``sm_90a``), one compiler process per source, all started together, and
+linked into one shared library,
 ``build/flowdenoising_tpu_torch/libfdt_kernels-<hash>.so`` at the root of
-the checkout, named by a hash of the sources and the command, and loaded
+the checkout, named by a hash of the sources and the commands, and loaded
 with ctypes.  A build for the same sources is reused; nothing is compiled
 when a module is imported.
 """
@@ -24,14 +25,17 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "flowdenoising_tpu_t
 
 # -fmad=false: no multiply-add contraction, so the kernels round as the
 # plain PyTorch versions' separate multiplies and adds do.
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xptxas",
+                 "-v", "-Xcompiler", "-fPIC", "-c"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every exported function: (argtypes, restype).
 SIGNATURES = {
+    "fdt_compose_step": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+                         _I),
     "fdt_sample": ([_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _F, _I,
                     _P], _I),
     "fdt_umuf_step": ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _P], _I),
@@ -50,12 +54,17 @@ def nvcc_path() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
-def nvcc_command(srcs: list[Path], out: Path) -> list[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), *map(str, srcs)]
+def compile_command(src: Path, obj: Path) -> list[str]:
+    return [nvcc_path(), *COMPILE_FLAGS, "-o", str(obj), str(src)]
+
+
+def link_command(objs: list[Path], out: Path) -> list[str]:
+    return [nvcc_path(), *ARCH_FLAGS, "-shared", "-o", str(out),
+            *map(str, objs)]
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -81,15 +90,31 @@ def build() -> Path:
                            "kernels are built on a machine with the CUDA "
                            "toolkit")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(nvcc_command(srcs, tmp), capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
+    try:
+        procs = [subprocess.Popen(compile_command(src, obj),
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        report = "".join(logs)
+        for src, proc, log in zip(srcs, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({proc.returncode}):\n{log}")
+        link = subprocess.run(link_command(objs, tmp), capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        out.with_suffix(".log").write_text(report + link.stdout + link.stderr)
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 

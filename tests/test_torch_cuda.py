@@ -7,18 +7,19 @@ conftest, so it runs on a machine with the card and no JAX:
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances are the JAX package's own kernel bars: sampling atol 2e-4 on
-data of scale ~50, Farneback iterations atol 5e-4 / rtol 1e-4, end to end
-PSNR >= 55 dB.
+data of scale ~50, Farneback iterations atol 5e-4 / rtol 1e-4, compose tap
+flow atol 1e-5 / accumulator atol 1e-4, end to end PSNR >= 55 dB.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from flowdenoising_tpu_torch.config import FilterConfig
+from flowdenoising_tpu_torch.config import FilterConfig, FlowConfig
 from flowdenoising_tpu_torch.core.pipeline import denoise
 from flowdenoising_tpu_torch.ops import cuda as K
 from flowdenoising_tpu_torch.ops import farneback as F
+from flowdenoising_tpu_torch.ops.cuda.compose import compose_tap, compose_tap_plain
 from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
 from flowdenoising_tpu_torch.ops.warp import displace_sample, displace_sample_plain
 
@@ -72,6 +73,28 @@ def test_umuf_kernel_matches_plain(dev, b, h, w, winsize, d):
     torch.testing.assert_close(out, ref, atol=5e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("n,h,w,d", [
+    (3, 64, 80, 8), (2, 33, 47, None), (4, 19, 130, 3), (2, 256, 256, 8),
+])
+def test_compose_kernel_matches_plain(dev, n, h, w, d):
+    r = np.random.default_rng(n * h + w)
+    link = _t(r.normal(size=(n + 5, 2, h, w)) * 0.6, dev)
+    nb = _t(r.normal(size=(n + 7, h, w)) * 50, dev)
+    flow = r.normal(size=(n, 2, h, w)) * 3
+    flow[:, 0, : h // 4] += 3 * (d or 8)
+    flow = _t(flow, dev)
+    acc = _t(r.normal(size=(n, h, w)), dev)
+    fr, ar = compose_tap_plain(link[4:4 + n], flow, nb[6:6 + n], acc,
+                               float(np.float32(0.13)), d)
+    before = K.LAUNCHES["compose"]
+    f2, a2 = compose_tap(link, flow, nb, acc, 0.13, d, 4, 6)
+    assert K.LAUNCHES["compose"] == before + 1
+    assert f2 is flow and a2 is acc
+    torch.cuda.synchronize()
+    torch.testing.assert_close(flow, fr, atol=1e-5, rtol=0)
+    torch.testing.assert_close(acc, ar, atol=1e-4, rtol=0)
+
+
 def test_wrappers_refuse_what_they_do_not_take(dev):
     src = torch.zeros(2, 8, 8, device=dev)
     uv = torch.zeros(2, 8, 8, device=dev)
@@ -85,17 +108,25 @@ def test_wrappers_refuse_what_they_do_not_take(dev):
         umuf_iterate(r, r, f.transpose(2, 3), 1, 2, 5)
     with pytest.raises(ValueError):
         umuf_iterate(r, r.cpu(), f, 1, 2, 5)
+    with pytest.raises(ValueError):
+        compose_tap(f, f, src, src.double(), 0.5, 2, 0, 0)
+    with pytest.raises(ValueError):
+        compose_tap(f, f.transpose(2, 3), src, src, 0.5, 2, 0, 0)
+    with pytest.raises(ValueError):
+        compose_tap(f.cpu(), f, src, src, 0.5, 2, 0, 0)
 
 
-def test_denoise_card_matches_cpu(dev):
+@pytest.mark.parametrize("tap_mode", ["solve", "compose"])
+def test_denoise_card_matches_cpu(dev, tap_mode):
     r = np.random.default_rng(0)
     z = np.arange(12)[:, None, None]
     y = np.arange(40)[None, :, None]
     x = np.arange(36)[None, None, :]
     vol = (100 * np.sin(0.3 * (x + 0.5 * z)) * np.cos(0.25 * (y - 0.3 * z))
            + r.normal(0, 10, (12, 40, 36))).astype(np.float32)
-    on_card = denoise(torch.from_numpy(vol).to(dev), FilterConfig()).cpu().numpy()
-    on_cpu = denoise(torch.from_numpy(vol), FilterConfig()).numpy()
+    cfg = FilterConfig(flow=FlowConfig(tap_mode=tap_mode))
+    on_card = denoise(vol, cfg).cpu().numpy()
+    on_cpu = denoise(vol, cfg, device="cpu").numpy()
     mse = np.mean((on_card.astype(np.float64) - on_cpu) ** 2)
     peak = on_cpu.max() - on_cpu.min()
     assert 10 * np.log10(peak * peak / max(mse, 1e-30)) >= 55

@@ -20,6 +20,7 @@ from flowdenoising_tpu_torch import cli
 from flowdenoising_tpu_torch.config import FilterConfig, FlowConfig, from_reference
 from flowdenoising_tpu_torch.io.mrc import write_mrc
 from flowdenoising_tpu_torch.ops.cuda import build
+from flowdenoising_tpu_torch.ops.cuda.compose import compose_tap
 from flowdenoising_tpu_torch.ops.cuda.sample import displace_sample
 from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
 
@@ -66,8 +67,6 @@ def test_default_device_cuda_raises_without_cuda(mrc_in, tmp_path):
     (["--max_displacement", "auto"], "A8"),
     (["--flow_presmooth", "1.0"], "A8"),
     (["--flow_presmooth", "auto"], "A8"),
-    (["--tap_flow", "compose"], "A9"),
-    (["--symmetric_adjacent"], "A9"),
     (["--precision", "bfloat16"], "A9"),
     (["--dtype", "bfloat16"], "A9"),
     (["--stream"], "A10"),
@@ -83,12 +82,12 @@ def test_unported_flags_exit_naming_roadmap_item(flags, item, mrc_in, tmp_path):
 
 def test_library_refuses_unported_settings():
     with pytest.raises(NotImplementedError, match="A9"):
-        FlowConfig(tap_mode="compose").check_ported()
-    with pytest.raises(NotImplementedError, match="A9"):
         FlowConfig(precision="bfloat16").check_ported()
     with pytest.raises(NotImplementedError, match="A8"):
         FlowConfig(presmooth=1.0).check_ported()
     FlowConfig().check_ported()
+    FlowConfig(tap_mode="compose", symmetric_adjacent=True,
+               adjacent_displacement=2).check_ported()
 
 
 @pytest.mark.parametrize("jcfg", [
@@ -97,6 +96,8 @@ def test_library_refuses_unported_settings():
                   slab_size=7,
                   flow=JFlowConfig(levels=2, winsize=7, max_displacement=None,
                                    use_initial_flow=False, min_size=8)),
+    JFilterConfig(flow=JFlowConfig(tap_mode="compose", symmetric_adjacent=True,
+                                   adjacent_displacement=3)),
 ])
 def test_from_reference_round_trips(jcfg):
     cfg = from_reference(jcfg)
@@ -114,10 +115,14 @@ def test_from_reference_round_trips(jcfg):
 
 def test_nvcc_command_targets_sm_90a():
     srcs = build.sources()
-    assert [s.name for s in srcs] == ["sample.cu", "umuf.cu"]
-    cmd = build.nvcc_command(srcs, Path("x.so"))
+    assert [s.name for s in srcs] == ["compose.cu", "sample.cu", "umuf.cu"]
+    for src in srcs:
+        cmd = build.compile_command(src, Path("x.o"))
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "-c" in cmd and cmd[-1] == str(src)
+    cmd = build.link_command([Path("a.o"), Path("b.o")], Path("x.so"))
     assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-shared" in cmd and cmd[-2:] == [str(s) for s in srcs]
+    assert "-shared" in cmd and cmd[-2:] == ["a.o", "b.o"]
     lib = build.library_path()
     assert lib.parent == REPO / "build" / "flowdenoising_tpu_torch"
     assert lib.name.startswith("libfdt_kernels-") and lib.suffix == ".so"
@@ -140,3 +145,5 @@ def test_wrappers_refuse_other_devices():
     f = torch.zeros(1, 2, 4, 4, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         umuf_iterate(r, r, f, 1, 2, 5)
+    with pytest.raises(ValueError, match="no kernel"):
+        compose_tap(f, f, src, src, 0.5, 2, 0, 0)

@@ -1,8 +1,11 @@
 """The port's pipeline against the JAX package's, on the CPU, end to end:
 denoise in the three boundary modes, the -n Gaussian path, wrap pads
-longer than the axis, slabs, and a CLI MRC round trip on ``--device cpu``.
+longer than the axis, slabs, the device an array input runs on, and a CLI
+MRC round trip on ``--device cpu``.
 Agreement bar: PSNR >= 55 dB (the end-to-end bar of tests/test_filter.py).
 """
+
+import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
@@ -79,6 +82,27 @@ def test_slabs_equal_whole_axis(vol):
     cfg_slab = from_reference(_jax_cfg(JBoundary.MEAN, slab_size=3))
     slabbed = denoise(torch.from_numpy(vol[:, :24, :20]), cfg_slab)
     torch.testing.assert_close(slabbed, whole, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("fn", [denoise, gaussian_denoise])
+def test_array_input_defaults_to_cuda(vol, fn):
+    # an array goes to CUDA unless the caller asks for the CPU; with no CUDA
+    # device that raises instead of running on the CPU
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the test checks a host without it")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        fn(vol)
+
+
+@pytest.mark.parametrize("use_flow", [True, False])
+def test_array_input_on_cpu_equals_tensor_input(vol, use_flow):
+    cfg = from_reference(_jax_cfg(JBoundary.WRAP))
+    cfg = dataclasses.replace(cfg, use_flow=use_flow)
+    sub = vol[:, :24, :20]
+    from_array = denoise(sub, cfg, device="cpu")
+    assert from_array.device.type == "cpu"
+    torch.testing.assert_close(from_array, denoise(torch.from_numpy(sub), cfg),
+                               atol=0, rtol=0)
 
 
 def test_cli_mrc_round_trip_cpu(vol, tmp_path):
