@@ -9,26 +9,31 @@ Phases, one or more lines of output each (any failure exits non-zero):
                limit as nvidia-smi reports them.
 2. build    -- the kernels under flowdenoising_tpu_torch/csrc, compiled
                with nvcc for sm_90a (one compiler per source, in parallel).
-3. kernels  -- K-sample, K-umuf and K-compose against their plain PyTorch
-               versions on the card, at the shapes the main paths give them,
-               with the tolerances of the JAX package's own kernel tests;
-               times of both, the least time the card could take for the
-               same work (bound), and for K-sample the time of
+3. kernels  -- K-sample, K-umuf, K-compose, K-um and K-uf against their
+               plain PyTorch versions on the card, at the shapes the main
+               paths give them, with the tolerances of the JAX package's own
+               kernel tests; times of both, the least time the card could
+               take for the same work (bound), and for K-sample the time of
                torch.nn.functional.grid_sample on the same sampling (the
                port never calls it).
-4. main     -- three paths through the CLI (python -m flowdenoising_tpu_torch
-               ... -s 2 2 2 --max_displacement 8) on a seeded size^3 blob
-               volume with noise, through MRC files: solve mode, compose
-               mode (--tap_flow compose) and compose with
-               --symmetric_adjacent.  Each path runs with the launch counts
-               set to 0 just before it; the counts must be what its tap and
+4. main     -- paths through the CLI (python -m flowdenoising_tpu_torch
+               ... -s 2 2 2) on a seeded size^3 blob volume with noise,
+               through MRC files: at --max_displacement 8 solve mode,
+               compose mode (--tap_flow compose), compose with
+               --symmetric_adjacent and solve with --flow_presmooth auto;
+               then auto_v2, the CLI's default flow setup with -v 2 (the
+               auto displacement probe, the profiled run and its measured
+               stage report).  Each path runs with the launch counts set to
+               0 just before it; the counts must be what its probe, tap and
                level loops imply, the output finite and closer to the clean
                volume than the input.  Then a warm timed run of ``denoise``
-               per path, and a torch.profiler run of solve and compose for
-               the device-time split.
+               per path, a torch.profiler run of solve and compose for the
+               device-time split, the cost of the -v 2 profiling, and the
+               reconstructed stage report (K-um and K-uf) beside the
+               measured one.
 5. e2e      -- a 24x96x96 volume through ``denoise`` on the card (kernels)
                and on the CPU (plain versions), in solve and in compose
-               mode: PSNR >= 55 dB between them.
+               mode and presmoothed: PSNR >= 55 dB between them.
 
 The last lines are the card's nvidia-smi line, a JSON object of the kernels
 and, last, ``{"ok": true, "device": {...}}``.
@@ -38,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -99,11 +105,18 @@ SAMPLE_FLOPS = 10 + 6          # clamp, coordinates, floor, fractions; 3 lerps
 COMPOSE_FLOPS = 2 * 10 + 2 * 6 + 2 + 6 + 2   # two footprints, 2 + 1 samples, add, fma
 
 
-def umuf_flops(winsize: int) -> int:
-    """Per pixel and iteration: ~70 in phase 1 (footprint, five sampled
-    channels, M), 5 * winsize^2 adds and 5 scales in the box sum, ~12 in
+UM_FLOPS = 70                  # footprint, five sampled channels, M
+
+
+def uf_flops(winsize: int) -> int:
+    """Per pixel: 5 * winsize^2 adds and 5 scales in the box sum, ~12 in
     the 2x2 solve."""
-    return 70 + 5 * winsize * winsize + 5 + 12
+    return 5 * winsize * winsize + 5 + 12
+
+
+def umuf_flops(winsize: int) -> int:
+    """Per pixel and iteration: phase 1 (K-um's work) and phase 2 (K-uf's)."""
+    return UM_FLOPS + uf_flops(winsize)
 
 
 def blob_volume(n: int, h: int, w: int, seed: int, drift: float = 0.7):
@@ -331,6 +344,64 @@ def phase_kernels(dev, seed: int) -> dict:
     e, ms, pms, bms, by = compose_case(256, 256, 256, 8, 15, 7, 8, reps=10)
     res["compose"] = dict(max_abs_err=max(err, e), ms=ms, plain_ms=pms,
                           bound_ms=bms, bound_by=by, library_ms=None)
+
+    # K-um: (256, 5, 256, 256) at d 9 and no bound, and the -v 2 stage
+    # report's (8, 5, 256, 256); flows N(0, 1.5) with a band pushed beyond
+    # +-d; atol 5e-4, rtol 1e-4 (tests/test_pallas_um.py)
+    err, main = 0.0, None
+    rr = F.poly_expand(t(r.normal(size=(2, 256, 256, 256)) * 40)).contiguous()
+    for b, d in ((256, 9), (256, None), (8, 9)):
+        r0, r1 = rr[0, :b], rr[1, :b]
+        flow = banded_flow(b, 256, 256, d, scale=1.5)
+        out = F.update_matrices(r0, r1, flow, d)
+        ref = F.update_matrices_plain(r0, r1, flow, d)
+        torch.cuda.synchronize()
+        diff = (out - ref).abs()
+        e = float(diff.max())
+        require(bool((diff <= 5e-4 + 1e-4 * ref.abs()).all()),
+                f"K-um ({b},5,256,256) d={d}: max abs err {e}")
+        err = max(err, e)
+        ms = cuda_ms(lambda: F.update_matrices(r0, r1, flow, d))
+        pms = cuda_ms(lambda: F.update_matrices_plain(r0, r1, flow, d), reps=3)
+        # r0, r1 and the flow read once, M written once: 68 B per pixel
+        px = flow.numel() // 2
+        bms, by = bound(4 * (3 * r0.numel() + flow.numel()), UM_FLOPS * px)
+        print(f"[3 kernels] K-um ({b},5,256,256) d={d}: max_abs_err {e:.3g}, "
+              f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}); "
+              "no single library call", flush=True)
+        if main is None:
+            main = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                        library_ms=None)
+            m = ref             # K-uf's input below: M of the main-path call
+        del flow, out, ref, diff
+    res["um"] = dict(max_abs_err=err, **main)
+    del rr
+
+    # K-uf: that M (256, 5, 256, 256) at winsize 5 and 15; atol 1e-4, rtol
+    # 1e-4 (tests/test_pallas_uf.py)
+    err, main = 0.0, None
+    for ws in (5, 15):
+        out = F.update_flow(m, ws)
+        ref = F.update_flow_plain(m, ws)
+        torch.cuda.synchronize()
+        diff = (out - ref).abs()
+        e = float(diff.max())
+        require(bool((diff <= 1e-4 + 1e-4 * ref.abs()).all()),
+                f"K-uf (256,5,256,256) ws={ws}: max abs err {e}")
+        err = max(err, e)
+        ms = cuda_ms(lambda: F.update_flow(m, ws))
+        pms = cuda_ms(lambda: F.update_flow_plain(m, ws), reps=3)
+        # M read once, the flow written once: 28 B per pixel
+        px = out.numel() // 2
+        bms, by = bound(4 * (m.numel() + out.numel()), uf_flops(ws) * px)
+        print(f"[3 kernels] K-uf (256,5,256,256) ws={ws}: max_abs_err {e:.3g}, "
+              f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}); "
+              "no single library call", flush=True)
+        if main is None:
+            main = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                        library_ms=None)
+        del out, ref, diff
+    res["uf"] = dict(max_abs_err=err, **main)
     return res
 
 
@@ -338,11 +409,12 @@ def expected_launches(shape, cfg) -> dict:
     """Launches the tap and level loops imply for one denoise of ``shape``:
     solve mode solves every tap pair and warps with K-sample; compose mode
     solves the adjacent pairs once per direction (once with
-    symmetric_adjacent) and runs one K-compose per tap."""
+    symmetric_adjacent) and runs one K-compose per tap.  A denoise never
+    launches K-um or K-uf (its solves run fused in K-umuf)."""
     from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
     planes = [(shape[1], shape[2]), (shape[0], shape[2]), (shape[0], shape[1])]
     f = cfg.flow
-    n = {"compose": 0, "sample": 0, "umuf": 0}
+    n = {"compose": 0, "sample": 0, "uf": 0, "um": 0, "umuf": 0}
     for taps, (h, w) in zip(get_gaussian_kernels(cfg.sigma), planes):
         n_taps = len(taps) - 1
         per_solve = (f.clamped_levels(h, w) + 1) * f.iterations
@@ -353,6 +425,31 @@ def expected_launches(shape, cfg) -> dict:
             n["sample"] += n_taps
             n["umuf"] += n_taps * per_solve
     return n
+
+
+def stage_report_launches(shape, cfg) -> dict:
+    """Launches of the -v 2 reconstruction of a flow denoise of ``shape``:
+    each op is timed as 3 runs (one warm-up, two timed) of _REPS chained
+    calls -- the split iteration (K-um, K-uf) at every pyramid level of
+    every pass, the tap warp (K-sample) once per pass."""
+    from flowdenoising_tpu_torch.utils.stage_report import _REPS
+    planes = [(shape[1], shape[2]), (shape[0], shape[2]), (shape[0], shape[1])]
+    n = {"compose": 0, "sample": 0, "uf": 0, "um": 0, "umuf": 0}
+    for h, w in planes:
+        levels = cfg.flow.clamped_levels(h, w) + 1
+        n["um"] += 3 * _REPS * levels
+        n["uf"] += 3 * _REPS * levels
+        n["sample"] += 3 * _REPS
+    return n
+
+
+def wall_s(fn) -> float:
+    """Host seconds of one ``fn()`` that ends in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
 
 
 def kernel_family(name: str) -> str:
@@ -377,6 +474,8 @@ def device_split(fn) -> tuple[float, float, list]:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from flowdenoising_tpu_torch.ops.farneback import EXPANSION_RANGE
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -385,7 +484,9 @@ def device_split(fn) -> tuple[float, float, list]:
         wall = (time.perf_counter() - t0) * 1e3
     fam = {}
     for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+        # the range the port puts around the expansion pyramid also shows
+        # on the device; it spans kernels and is none
+        if ev.device_type != DeviceType.CUDA or ev.name == EXPANSION_RANGE:
             continue
         key = kernel_family(ev.name)
         ms, count = fam.get(key, (0.0, 0))
@@ -397,19 +498,23 @@ def device_split(fn) -> tuple[float, float, list]:
 
 
 PATHS = {
-    # name: (CLI flags beyond -s 2 2 2 --max_displacement 8, FlowConfig fields)
+    # name: (CLI flags beyond -s 2 2 2 --max_displacement 8, FlowConfig
+    # fields); --flow_presmooth auto is resolved from the volume
     "solve": ([], {}),
     "compose": (["--tap_flow", "compose"], {"tap_mode": "compose"}),
     "compose_symmetric": (["--tap_flow", "compose", "--symmetric_adjacent"],
                           {"tap_mode": "compose", "symmetric_adjacent": True}),
+    "presmooth_auto": (["--flow_presmooth", "auto"], {}),
 }
 
 
 def phase_main(dev, size: int, seed: int) -> dict:
-    """Every path of PATHS through the CLI, then warm; returns each path's
-    launch counts."""
+    """Every path of PATHS through the CLI, then warm; then the auto_v2
+    path.  Returns each path's launch counts, and the -v 2 reconstruction's
+    as "stage_report"."""
     from flowdenoising_tpu_torch import cli
     from flowdenoising_tpu_torch.config import FilterConfig, FlowConfig
+    from flowdenoising_tpu_torch.core.noise import resolve_auto_presmooth
     from flowdenoising_tpu_torch.core.pipeline import denoise
     from flowdenoising_tpu_torch.io.mrc import read_mrc, write_mrc
     from flowdenoising_tpu_torch.ops import cuda as K
@@ -428,6 +533,8 @@ def phase_main(dev, size: int, seed: int) -> dict:
         for name, (flags, fields) in PATHS.items():
             # sigma 2, wrap, D = 8, float32
             cfg = FilterConfig(flow=FlowConfig(**fields))
+            if "--flow_presmooth" in flags:
+                cfg = resolve_auto_presmooth(noisy, cfg)
             dst = Path(tmp) / f"denoised_{name}.mrc"
             K.reset_launches()
             t0 = time.perf_counter()
@@ -455,13 +562,14 @@ def phase_main(dev, size: int, seed: int) -> dict:
             secs = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated()
             rerun = float(np.abs(warm.cpu().numpy() - out).max())
-            print(f"[4 main] {size}^3 CLI {name} denoise (sigma 2, D=8, wrap): "
+            print(f"[4 main] {size}^3 CLI {name} denoise (sigma 2, D=8, wrap, "
+                  f"presmooth {cfg.flow.presmooth}): "
                   f"launches {launches} as expected; PSNR vs clean {p_in:.2f} -> "
                   f"{p_out:.2f} dB; CLI run {cold:.2f} s (cold, incl. I/O); warm "
                   f"denoise {secs:.3f} s = {clean.size / secs / 1e6:.2f} Mvoxel/s; "
                   f"peak device memory {peak / 2**30:.2f} GiB; warm vs CLI output "
                   f"max abs diff {rerun:.3g}", flush=True)
-            if name != "compose_symmetric":
+            if name in ("solve", "compose"):
                 busy, wall, fams = device_split(lambda: denoise(vol, cfg))
                 split = "; ".join(f"{k} {ms:.1f} ms ({100 * ms / busy:.1f}%, {c})"
                                   for k, ms, c in fams)
@@ -471,7 +579,120 @@ def phase_main(dev, size: int, seed: int) -> dict:
                       flush=True)
             del vol, warm
             counts[name] = launches
+        counts["auto_v2"], counts["stage_report"] = path_auto_v2(
+            dev, Path(tmp), src, clean, noisy)
     return counts
+
+
+def path_auto_v2(dev, tmp: Path, src: Path, clean, noisy):
+    """The CLI's default flow setup with -v 2 (no --max_displacement: the
+    auto probe picks the bound), its measured stage report, the cost of the
+    profiling, and the reconstructed report (K-um, K-uf) beside the measured
+    one.  Returns (the CLI run's launches, the reconstruction's)."""
+    from flowdenoising_tpu_torch import cli
+    from flowdenoising_tpu_torch.config import FilterConfig, FlowConfig
+    from flowdenoising_tpu_torch.core.autodisp import probe_displacement
+    from flowdenoising_tpu_torch.core.pipeline import denoise
+    from flowdenoising_tpu_torch.io.mrc import read_mrc
+    from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
+    from flowdenoising_tpu_torch.ops import cuda as K
+    from flowdenoising_tpu_torch.utils import trace_report
+    from flowdenoising_tpu_torch.utils.stage_report import device_stage_report
+
+    size = clean.shape[0]
+    # the probe alone first, for its launches and seconds (the CLI's probe
+    # sees the same volume, through the MRC file, and the same defaults)
+    picked = []
+    K.reset_launches()
+    probe_s = wall_s(lambda: picked.append(
+        probe_displacement(noisy, FilterConfig(), device=dev)))
+    probe = dict(K.LAUNCHES)
+    (max_d, adj_d), = picked
+    cfg = FilterConfig(flow=FlowConfig(max_displacement=max_d,
+                                       adjacent_displacement=adj_d))
+
+    # the CLI, with its measured report captured on the way out
+    reports = []
+    measured_stage_report = trace_report.measured_stage_report
+
+    def capture(path):
+        reports.append(measured_stage_report(path))
+        return reports[-1]
+
+    dst = tmp / "denoised_auto_v2.mrc"
+    trace_report.measured_stage_report = capture
+    K.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["-i", str(src), "-o", str(dst), "-s", "2", "2", "2",
+                       "-v", "2"])
+    finally:
+        trace_report.measured_stage_report = measured_stage_report
+    cold = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    require(rc == 0, f"auto_v2: cli.main returned {rc}")
+    want = {k: probe[k] + n for k, n in expected_launches(clean.shape, cfg).items()}
+    require(launches == want, f"auto_v2: launch counts {launches}, expected "
+            f"{want} (probe {probe} + the denoise at D={max_d})")
+    out, _ = read_mrc(dst)
+    require(out.shape == clean.shape and bool(np.isfinite(out).all()),
+            "auto_v2: output shape or non-finite values")
+    p_in, p_out = psnr(noisy, clean), psnr(out, clean)
+    require(p_out > p_in, f"auto_v2: PSNR vs clean {p_out:.2f} dB <= input's "
+            f"{p_in:.2f} dB")
+    require(len(reports) == 1 and reports[0] is not None,
+            "auto_v2: the CLI logged no measured stage report")
+    measured = reports[0]
+    for key in ("OFE_solve", "warping", "OFE_expansion"):
+        require(measured[key] > 0, f"auto_v2: measured {key} is 0: the trace's "
+                "kernels were not classified")
+    print(f"[4 main] {size}^3 CLI auto_v2 (default flow setup, -v 2): probe picked "
+          f"max_displacement={max_d}, adjacent_displacement={adj_d} in "
+          f"{probe_s:.3f} s (probe launches {probe}); CLI launches {launches} = "
+          f"probe + denoise as expected; PSNR vs clean {p_in:.2f} -> {p_out:.2f} dB; "
+          f"CLI run {cold:.2f} s (cold, incl. I/O, probe, profiling)", flush=True)
+
+    # what -v 2's profiling costs the filter phase: a warm denoise without
+    # and with traced_run (trace export and report parse included)
+    vol = torch.from_numpy(noisy).to(dev)
+
+    def traced():
+        with trace_report.traced_run() as state:
+            denoise(vol, cfg)
+            torch.cuda.synchronize()
+        try:
+            measured_stage_report(state["path"])
+        finally:
+            os.remove(state["path"])
+
+    plain_s = wall_s(lambda: denoise(vol, cfg))
+    traced_s = wall_s(traced)
+    print(f"[4 main] {size}^3 -v 2 profiling cost: warm denoise {plain_s:.3f} s "
+          f"without, {traced_s:.3f} s with traced_run (export and parse "
+          "included)", flush=True)
+    del vol
+
+    # the reconstruction: K-um + K-uf at every level, K-sample per pass
+    recon = {}
+    K.reset_launches()
+    recon_s = wall_s(lambda: recon.update(device_stage_report(
+        clean.shape, cfg, get_gaussian_kernels(cfg.sigma), device=dev)))
+    rlaunch = dict(K.LAUNCHES)
+    want = stage_report_launches(clean.shape, cfg)
+    require(rlaunch == want, f"stage report: launch counts {rlaunch}, expected {want}")
+    if size == 256:
+        require(rlaunch["um"] == rlaunch["uf"] == 144,
+                f"stage report at 256^3: {rlaunch['um']} K-um, {rlaunch['uf']} K-uf")
+    keys = sorted(set(measured) | set(recon))
+    table = "; ".join(f"{k} {1e3 * measured[k]:.1f}" if k in measured else f"{k} --"
+                      for k in keys)
+    table2 = "; ".join(f"{k} {1e3 * recon[k]:.1f}" if k in recon else f"{k} --"
+                       for k in keys)
+    print(f"[4 main] {size}^3 stage split, ms: measured (trace of the CLI run): "
+          f"{table}; reconstructed (per-op timings, OFE_solve = split K-um + "
+          f"K-uf): {table2}; reconstruction took {recon_s:.2f} s, launches "
+          f"{rlaunch}", flush=True)
+    return launches, rlaunch
 
 
 def phase_e2e(dev, seed: int) -> None:
@@ -480,13 +701,15 @@ def phase_e2e(dev, seed: int) -> None:
 
     vol = blob_volume(24, 96, 96, seed + 2)
     vol += np.random.default_rng(seed + 3).normal(0, 20, vol.shape).astype(np.float32)
-    for mode in ("solve", "compose"):
-        cfg = FilterConfig(flow=FlowConfig(tap_mode=mode))
+    for mode, presmooth in (("solve", 0.0), ("compose", 0.0), ("solve", 1.5)):
+        cfg = FilterConfig(flow=FlowConfig(tap_mode=mode, presmooth=presmooth))
         on_card = denoise(vol, cfg, device=dev).cpu().numpy()
         on_cpu = denoise(vol, cfg, device="cpu").numpy()
         p = psnr(on_card, on_cpu)
-        require(p >= 55.0, f"{mode}: card vs CPU PSNR {p:.2f} dB < 55")
-        print(f"[5 e2e] 24x96x96 {mode} denoise, card (kernels) vs CPU (plain): "
+        require(p >= 55.0, f"{mode} presmooth {presmooth}: card vs CPU PSNR "
+                f"{p:.2f} dB < 55")
+        print(f"[5 e2e] 24x96x96 {mode} denoise, presmooth {presmooth}, card "
+              "(kernels) vs CPU (plain): "
               f"PSNR {p:.2f} dB (bar 55); max abs diff "
               f"{float(np.abs(on_card - on_cpu).max()):.3g}", flush=True)
 
@@ -507,7 +730,8 @@ def main() -> int:
     phase_e2e(dev, args.seed)
 
     # each kernel's launches from the path that defines it: K-umuf and
-    # K-sample from solve mode, K-compose from compose mode
+    # K-sample from solve mode, K-compose from compose mode, K-um and K-uf
+    # from the -v 2 reconstruction
     kernels = {
         "umuf": ("flowdenoising_tpu_torch/csrc/umuf.cu",
                  "flowdenoising_tpu/ops/pallas/umuf.py:87", "solve"),
@@ -515,6 +739,10 @@ def main() -> int:
                    "flowdenoising_tpu/ops/pallas/sample.py:99", "solve"),
         "compose": ("flowdenoising_tpu_torch/csrc/compose.cu",
                     "flowdenoising_tpu/ops/pallas/compose.py:141", "compose"),
+        "um": ("flowdenoising_tpu_torch/csrc/um.cu",
+               "flowdenoising_tpu/ops/pallas/update_matrices.py:54", "stage_report"),
+        "uf": ("flowdenoising_tpu_torch/csrc/uf.cu",
+               "flowdenoising_tpu/ops/pallas/update_flow.py:32", "stage_report"),
     }
     print(card)
     print(json.dumps({"kernels": [

@@ -8,11 +8,14 @@ the compose tap modes; ``denoise`` runs on the input tensor's device, or on
 CUDA for an array unless ``device="cpu"`` is passed:
 
 - ``flowdenoising_tpu_torch.core``  -- per-axis passes and the Z -> Y -> X
-  pipeline;
+  pipeline, the auto displacement probe and the noise policy;
 - ``flowdenoising_tpu_torch.ops``   -- resize, blur, warp and Farneback
   flow, with the hand-written CUDA kernels K-umuf (one Farneback iteration),
-  K-sample (the solve-mode tap warp) and K-compose (the compose-mode tap)
+  K-sample (the solve-mode tap warp), K-compose (the compose-mode tap), and
+  K-um and K-uf (the two halves of an iteration, for the ``-v 2`` report)
   under ``ops.cuda`` and their plain PyTorch versions beside them;
+- ``flowdenoising_tpu_torch.utils`` -- the ``-v 2`` stage reports, logging
+  and progress;
 - ``flowdenoising_tpu_torch.io``    -- MRC2014 and TIFF volume I/O;
 - ``flowdenoising_tpu_torch.cli``   -- the reference-compatible CLI.
 """

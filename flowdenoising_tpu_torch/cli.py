@@ -6,16 +6,21 @@ Usage:
 
 The port runs the flow denoise in both tap modes (``--tap_flow solve``,
 the default, and ``--tap_flow compose`` with ``--symmetric_adjacent``) and
-``-n``, in float32 on one device, in memory, with a fixed displacement
-bound (default 8; 0 means no bound).  Every flag of a feature not yet
-ported exits with a message naming its ROADMAP item; none is ignored.  ``--device`` picks the device: ``cuda``
-(the default) runs the CUDA kernels and fails without a CUDA device;
-``cpu`` runs their plain PyTorch versions.
+``-n``, in float32 on one device, in memory.  The displacement bound is
+probed from the volume by default (``--max_displacement auto``), and flows
+may be estimated from a presmoothed copy (``--flow_presmooth``).  ``-v 2``
+logs the per-stage device time: measured from a ``torch.profiler`` trace
+of the run on the card, reconstructed from per-op timings where the trace
+has no device event.  Every flag of a feature not yet ported exits with a
+message naming its ROADMAP item; none is ignored.  ``--device`` picks the
+device: ``cuda`` (the default) runs the CUDA kernels and fails without a
+CUDA device; ``cpu`` runs their plain PyTorch versions.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import sys
@@ -92,13 +97,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Per-tap flow strategy: 'solve' = one Farneback solve per "
                         "tap pair; 'compose' = one solve per adjacent slice pair "
                         "and direction, farther taps' flows composed from them")
-    p.add_argument("--max_displacement", type=int_or_str, default=MAX_DISPLACEMENT,
+    p.add_argument("--max_displacement", type=int_or_str, default=None,
                    help="Per-tap flow sampling bound in pixels; motions beyond it "
-                        "are clamped during sampling.  0 = no bound (exact "
-                        "sampling).  'auto' is not yet ported (ROADMAP A8)")
+                        "are clamped during sampling.  Default 'auto': probe the "
+                        "volume's motion and pick the smallest bound that loses "
+                        "no tracked motion (core/autodisp.py); with -n the "
+                        f"fixed {MAX_DISPLACEMENT}.  An integer fixes the bound; "
+                        "0 = no bound (exact sampling)")
     p.add_argument("--flow_presmooth", type=float_or_str, default=0.0,
-                   help="Estimate flows from an in-plane pre-smoothed copy "
-                        "(not yet ported, ROADMAP A8); 0 = off")
+                   help="Estimate flows from a copy of the volume pre-smoothed "
+                        "in-plane with this Gaussian sigma (px); tap warps still "
+                        "sample the raw volume.  0 = off; 'auto' enables it "
+                        "when the input is clearly noisy (core/noise.py)")
     p.add_argument("--symmetric_adjacent", action="store_true",
                    help="Compose mode: take the backward adjacent flows as the "
                         "negated forward ones (one adjacent solve per pass "
@@ -124,15 +134,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     """Exit, naming the ROADMAP item, on any flag of an unported feature."""
-    md = args.max_displacement
-    if md == "auto":
-        raise SystemExit("--max_displacement auto is not yet ported "
-                         "(ROADMAP A8); pass an integer bound (default 8) "
-                         "or 0 for no bound")
-    if isinstance(md, str):
-        raise SystemExit(f"--max_displacement must be an integer, got {md!r}")
-    if args.flow_presmooth != 0.0:
-        raise SystemExit("--flow_presmooth is not yet ported (ROADMAP A8)")
     if args.dtype != "float32" or args.precision != "float32":
         raise SystemExit("--dtype/--precision bfloat16 is not yet ported "
                          "(ROADMAP A9)")
@@ -165,14 +166,27 @@ def main(argv=None) -> int:
 
     verbosity = args.verbosity if isinstance(args.verbosity, int) else 0
     setup_logging(verbosity)
+    if args.max_displacement is None:
+        # no probe without flow; multi-process runs (refused below) would
+        # need the volume on one host to probe
+        args.max_displacement = (MAX_DISPLACEMENT
+                                 if args.no_OF or args.coordinator else "auto")
+    auto_disp = args.max_displacement == "auto"
+    if isinstance(args.max_displacement, str) and not auto_disp:
+        raise SystemExit(f"--max_displacement must be an integer or 'auto', "
+                         f"got {args.max_displacement!r}")
+    auto_presmooth = args.flow_presmooth == "auto"
+    if isinstance(args.flow_presmooth, str) and not auto_presmooth:
+        raise SystemExit(f"--flow_presmooth must be a number or 'auto', "
+                         f"got {args.flow_presmooth!r}")
+    if args.no_OF and (auto_disp or auto_presmooth):
+        logging.info("--max_displacement/--flow_presmooth auto ignored: flow "
+                     "compensation is disabled (-n)")
     _refuse_unported(args)
     device = _device(args.device)
     # full float32 for the resize matrix products (PyTorch's default; a
     # TF32 product keeps ~3 decimal digits)
     torch.backends.cuda.matmul.allow_tf32 = False
-    if verbosity >= 2:
-        logging.info("the per-stage trace report of -v 2 is not yet ported "
-                     "(ROADMAP A12); logging at debug level only")
     prof = PhaseProfiler()
 
     sigma = tuple(float(s) for s in args.sigma)
@@ -180,7 +194,9 @@ def main(argv=None) -> int:
         sigma = sigma * 3
     logging.info(f"sigma={sigma}")
 
-    md = int(args.max_displacement)
+    # with auto, the fixed default stands until the probe replaces it (its
+    # floors fall back to it)
+    md = MAX_DISPLACEMENT if auto_disp else int(args.max_displacement)
     cfg = FilterConfig(
         sigma=sigma,
         boundary=Boundary(args.boundary),
@@ -192,6 +208,7 @@ def main(argv=None) -> int:
             max_displacement=md if md > 0 else None,
             tap_mode=args.tap_flow,
             symmetric_adjacent=args.symmetric_adjacent,
+            presmooth=0.0 if auto_presmooth else float(args.flow_presmooth),
         ),
         slab_size=args.slab_size,
     )
@@ -225,6 +242,15 @@ def main(argv=None) -> int:
         vol = read_volume(args.input, memory_map=args.memory_map, as_f32=True)
     log_volume_stats(str(args.input), vol)
 
+    if auto_disp and cfg.use_flow:
+        from flowdenoising_tpu_torch.core.autodisp import (
+            resolve_auto_displacement)
+        with prof.phase("probe"):
+            cfg = resolve_auto_displacement(vol, cfg, device=device)
+    if auto_presmooth and cfg.use_flow:
+        from flowdenoising_tpu_torch.core.noise import resolve_auto_presmooth
+        cfg = resolve_auto_presmooth(vol, cfg)
+
     kernels = get_gaussian_kernels(sigma)
     logging.info(f"length of each filter (Z, Y, X) = {[len(k) for k in kernels]}")
     logging.info(f"PyTorch {torch.__version__} on {device}"
@@ -235,7 +261,13 @@ def main(argv=None) -> int:
     shape = np.shape(vol)
     progress = ProgressReporter(total_units=int(sum(shape)))
 
-    with prof.phase("filter"), progress:
+    # -v 2: profile the actual run for the measured per-stage report
+    trace_ctx = contextlib.nullcontext({})
+    if verbosity >= 2:
+        from flowdenoising_tpu_torch.utils.trace_report import traced_run
+        trace_ctx = traced_run()
+
+    with prof.phase("filter"), progress, trace_ctx as trace_state:
         def on_pass(i, _v):
             progress.advance(shape[i])
 
@@ -248,6 +280,22 @@ def main(argv=None) -> int:
         write_volume(args.output, filtered, quantize=args.tiff_quantize,
                      voxel_size=voxel_size)
     prof.report()
+
+    if verbosity >= 2:
+        # per-stage device time: measured from the run's trace, else (no
+        # device event: a CPU run) the labelled reconstruction
+        from flowdenoising_tpu_torch.utils.stage_report import (
+            device_stage_report)
+        from flowdenoising_tpu_torch.utils.trace_report import (
+            measured_stage_report)
+        path = trace_state.get("path")
+        try:
+            measured = measured_stage_report(path)
+        finally:
+            if path:
+                os.remove(path)
+        if measured is None:
+            device_stage_report(shape, cfg, kernels, device=device)
     return 0
 
 

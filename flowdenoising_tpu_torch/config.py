@@ -69,9 +69,6 @@ class FlowConfig:
         if self.dtype != "float32" or self.precision != "float32":
             raise NotImplementedError(
                 "bfloat16 dtype/precision is not yet ported (ROADMAP A9)")
-        if self.presmooth:
-            raise NotImplementedError(
-                "flow presmooth is not yet ported (ROADMAP A8)")
 
     def clamped_levels(self, height: int, width: int) -> int:
         """Number of pyramid levels actually used for an image size

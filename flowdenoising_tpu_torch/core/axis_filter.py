@@ -15,7 +15,10 @@ Counterpart of ``flowdenoising_tpu/core/axis_filter.py``:
   center in two runs and reset to zero between them.
 
 All output slices of a pass form one batch; the expansion pyramid of every
-slice is built once per pass and shared by all taps.
+slice is built once per pass and shared by all taps.  With
+``FlowConfig.presmooth`` the pyramid is built from an in-plane blurred copy
+of the stack (``_estimation_stack``), while every tap warp samples the raw
+stack.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from flowdenoising_tpu_torch.config import Boundary, FlowConfig
+from flowdenoising_tpu_torch.ops.blur import gaussian_blur
 from flowdenoising_tpu_torch.ops.cuda.compose import compose_tap
 from flowdenoising_tpu_torch.ops.farneback import (
     flow_from_pyramids, polyexp_pyramid, tap_solver)
@@ -70,6 +74,18 @@ def gaussian_pass_padded(padded: torch.Tensor, taps: np.ndarray) -> torch.Tensor
     return out
 
 
+def _estimation_stack(padded: torch.Tensor,
+                      flow_cfg: FlowConfig) -> torch.Tensor:
+    """The stack flows are estimated from: the raw padded stack, or, with
+    ``flow_cfg.presmooth`` > 0, a copy blurred in-plane with that sigma
+    (kernel size max(3, round(4 sigma) | 1), BORDER_REFLECT_101), as the
+    JAX package's ``_estimation_stack``."""
+    if not flow_cfg.presmooth or flow_cfg.presmooth <= 0:
+        return padded
+    ks = max(3, int(round(flow_cfg.presmooth * 4.0)) | 1)
+    return gaussian_blur(padded, ks, flow_cfg.presmooth)
+
+
 def of_pass_padded(padded: torch.Tensor, taps: np.ndarray,
                    flow_cfg: FlowConfig) -> torch.Tensor:
     """OF-compensated Gaussian pass along axis 0 of a pre-padded stack
@@ -87,7 +103,7 @@ def of_pass_padded(padded: torch.Tensor, taps: np.ndarray,
         return _of_pass_composed(padded, taps, flow_cfg)
     ks2 = len(taps) // 2
     n = padded.shape[0] - 2 * ks2
-    solve = tap_solver(padded, ks2, n, flow_cfg)
+    solve = tap_solver(_estimation_stack(padded, flow_cfg), ks2, n, flow_cfg)
     acc = padded[ks2:ks2 + n] * float(np.float32(taps[ks2]))
     for sign in (-1, +1):
         flow = None   # each run starts from zero flow
@@ -121,7 +137,7 @@ def _of_pass_composed(padded: torch.Tensor, taps: np.ndarray,
     if flow_cfg.adjacent_displacement is not None and d is not None:
         adj_cfg = dataclasses.replace(
             flow_cfg, max_displacement=min(d, flow_cfg.adjacent_displacement))
-    r_levels = polyexp_pyramid(padded, flow_cfg)
+    r_levels = polyexp_pyramid(_estimation_stack(padded, flow_cfg), flow_cfg)
     lo = [r[:-1] for r in r_levels]
     hi = [r[1:] for r in r_levels]
     adj_fwd = flow_from_pyramids(lo, hi, adj_cfg, None)

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper and their launch counts.
 
 Each kernel's wrapper (``sample.displace_sample``, ``umuf.umuf_iterate``,
-``compose.compose_tap``) runs the kernel for a CUDA tensor and the plain PyTorch version for a CPU
+``compose.compose_tap``, ``um.update_matrices``, ``uf.update_flow``) runs
+the kernel for a CUDA tensor and the plain PyTorch version for a CPU
 tensor, and raises for any other device.  ``LAUNCHES`` counts the kernel
 launches of each wrapper: a run resets it and reads it afterwards to show
 which kernels its path went through.
@@ -10,7 +11,7 @@ which kernels its path went through.
 from __future__ import annotations
 
 # kernel name -> number of launches since the last reset_launches()
-LAUNCHES = {"compose": 0, "sample": 0, "umuf": 0}
+LAUNCHES = {"compose": 0, "sample": 0, "uf": 0, "um": 0, "umuf": 0}
 
 
 def reset_launches() -> None:

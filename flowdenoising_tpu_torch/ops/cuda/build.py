@@ -1,7 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
 The sources ``flowdenoising_tpu_torch/csrc/*.cu`` expose a plain C
-interface.  At first use they are compiled by ``nvcc`` for Hopper
+interface (``*.cuh``: device code they share).  At first use they are compiled by ``nvcc`` for Hopper
 (``sm_90a``), one compiler process per source, all started together, and
 linked into one shared library,
 ``build/flowdenoising_tpu_torch/libfdt_kernels-<hash>.so`` at the root of
@@ -39,6 +39,9 @@ SIGNATURES = {
     "fdt_sample": ([_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _F, _I,
                     _P], _I),
     "fdt_umuf_step": ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _P], _I),
+    "fdt_update_flow": ([_P, _P, _I, _I, _I, _I, _F, _P], _I),
+    "fdt_update_flow_smem": ([_I], ctypes.c_longlong),
+    "fdt_update_matrices": ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _P], _I),
 }
 
 
@@ -65,7 +68,7 @@ def link_command(objs: list[Path], out: Path) -> list[str]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):   # the sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libfdt_kernels-{h.hexdigest()[:16]}.so"

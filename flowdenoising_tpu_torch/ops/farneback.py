@@ -12,9 +12,12 @@ Counterpart of ``flowdenoising_tpu/ops/farneback.py``; the algorithm of
 4. ``flow_from_pyramids``: coarse to fine over the pyramid levels, 2+3
    iterated ``cfg.iterations`` times per level.
 
-Steps 2 and 3 are the plain version of the K-umuf kernel; on a CUDA tensor
-each level's iterations run in the kernel (``ops.cuda.umuf.umuf_iterate``)
-on every level, the smallest included.
+``update_matrices_plain`` and ``update_flow_plain`` are the plain versions
+of the kernels K-um and K-uf, whose wrappers ``update_matrices`` and
+``update_flow`` (``ops.cuda.um``, ``ops.cuda.uf``) only the ``-v 2`` stage
+report calls.  The solver fuses 2+3: on a CUDA tensor each level's
+iterations run in K-umuf (``ops.cuda.umuf.umuf_iterate``) on every level,
+the smallest included; ``umuf_iterate_plain`` is its plain version.
 
 Layout: channel-first with the batch leading -- expansions (B, 5, H, W),
 flows (B, 2, H, W) with channel 0 = x -- so one slice range of a stack's
@@ -32,10 +35,22 @@ import torch
 from flowdenoising_tpu_torch.config import FlowConfig
 from flowdenoising_tpu_torch.ops.blur import (
     _sep_correlate, box_blur_sum, corr1d, smooth_kernel_for_level)
+from flowdenoising_tpu_torch.ops.cuda.uf import update_flow
+from flowdenoising_tpu_torch.ops.cuda.um import update_matrices
 from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
 from flowdenoising_tpu_torch.ops.resize import (
     pyramid_sizes, resize_area, resize_linear)
 from flowdenoising_tpu_torch.ops.warp import displace_sample_plain
+
+__all__ = ["EXPANSION_RANGE", "farneback_flow", "flow_from_pyramids",
+           "image_pyramid", "poly_exp_constants", "poly_expand",
+           "polyexp_pyramid", "smoothed_level_image", "tap_solver",
+           "umuf_iterate", "umuf_iterate_plain", "update_flow",
+           "update_flow_plain", "update_matrices", "update_matrices_plain"]
+
+# The torch.profiler range around the expansion pyramid, by which the -v 2
+# measured report (utils.trace_report) finds the pyramid's kernels.
+EXPANSION_RANGE = "OFE_expansion"
 
 # Border down-weighting ramp (OpenCV farneback.cpp FarnebackUpdateMatrices).
 _BORDER_RAMP = np.array([0.14, 0.14, 0.4472, 0.4472, 0.4472], dtype=np.float64)
@@ -114,10 +129,11 @@ def _border_scale_map(h: int, w: int) -> np.ndarray:
     return np.outer(sy, sx)
 
 
-def update_matrices(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
-                    max_displacement: int | None = None) -> torch.Tensor:
+def update_matrices_plain(r0: torch.Tensor, r1: torch.Tensor,
+                          flow: torch.Tensor,
+                          max_displacement: int | None = None) -> torch.Tensor:
     """Per-pixel normal-equation entries M = [G11, G12, G22, h1, h2]
-    (phase 1 of K-umuf, plain).
+    (plain version of K-um, phase 1 of K-umuf).
 
     r0, r1: (..., 5, H, W) expansions of target and reference; flow:
     (..., 2, H, W).  r1 is sampled at the flow clamped to
@@ -161,9 +177,10 @@ def update_matrices(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
     ], dim=-3)
 
 
-def update_flow(m: torch.Tensor, winsize: int) -> torch.Tensor:
+def update_flow_plain(m: torch.Tensor, winsize: int) -> torch.Tensor:
     """Box-aggregate M (..., 5, H, W) over winsize (scaled by 1/winsize^2)
-    and solve the per-pixel 2x2 system (phase 2 of K-umuf, plain).
+    and solve the per-pixel 2x2 system (plain version of K-uf, phase 2 of
+    K-umuf).
 
     Returns flow (..., 2, H, W) with channel 0 = x displacement.
     """
@@ -179,7 +196,8 @@ def umuf_iterate_plain(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
                        iters: int, d: int | None, winsize: int) -> torch.Tensor:
     """Plain version of K-umuf: ``iters`` chained Farneback iterations."""
     for _ in range(iters):
-        flow = update_flow(update_matrices(r0, r1, flow, d), winsize)
+        flow = update_flow_plain(update_matrices_plain(r0, r1, flow, d),
+                                 winsize)
     return flow
 
 
@@ -213,9 +231,11 @@ def image_pyramid(img: torch.Tensor, cfg: FlowConfig) -> list[torch.Tensor]:
 
 
 def polyexp_pyramid(img: torch.Tensor, cfg: FlowConfig) -> list[torch.Tensor]:
-    """Per-level expansions (..., 5, h_k, w_k) of (..., H, W) images."""
-    return [poly_expand(i, cfg.poly_n, cfg.poly_sigma).contiguous()
-            for i in image_pyramid(img, cfg)]
+    """Per-level expansions (..., 5, h_k, w_k) of (..., H, W) images, in
+    the profiler range ``EXPANSION_RANGE``."""
+    with torch.profiler.record_function(EXPANSION_RANGE):
+        return [poly_expand(i, cfg.poly_n, cfg.poly_sigma).contiguous()
+                for i in image_pyramid(img, cfg)]
 
 
 def flow_from_pyramids(r0_levels: list[torch.Tensor],

@@ -7,8 +7,9 @@ conftest, so it runs on a machine with the card and no JAX:
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances are the JAX package's own kernel bars: sampling atol 2e-4 on
-data of scale ~50, Farneback iterations atol 5e-4 / rtol 1e-4, compose tap
-flow atol 1e-5 / accumulator atol 1e-4, end to end PSNR >= 55 dB.
+data of scale ~50, Farneback iterations and K-um atol 5e-4 / rtol 1e-4,
+K-uf atol 1e-4 / rtol 1e-4, compose tap flow atol 1e-5 / accumulator atol
+1e-4, end to end PSNR >= 55 dB.
 """
 
 import numpy as np
@@ -20,6 +21,8 @@ from flowdenoising_tpu_torch.core.pipeline import denoise
 from flowdenoising_tpu_torch.ops import cuda as K
 from flowdenoising_tpu_torch.ops import farneback as F
 from flowdenoising_tpu_torch.ops.cuda.compose import compose_tap, compose_tap_plain
+from flowdenoising_tpu_torch.ops.cuda.uf import update_flow
+from flowdenoising_tpu_torch.ops.cuda.um import update_matrices
 from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
 from flowdenoising_tpu_torch.ops.warp import displace_sample, displace_sample_plain
 
@@ -73,6 +76,39 @@ def test_umuf_kernel_matches_plain(dev, b, h, w, winsize, d):
     torch.testing.assert_close(out, ref, atol=5e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("b,h,w,d,scale", [
+    (2, 64, 64, 9, 2.0), (3, 37, 70, 3, 6.0), (2, 8, 9, 2, 1.0),
+    (1, 3, 3, 2, 1.0), (2, 33, 47, None, 4.0), (8, 256, 256, 9, 1.5),
+])
+def test_um_kernel_matches_plain(dev, b, h, w, d, scale):
+    r = np.random.default_rng(h * w + b)
+    rr = F.poly_expand(_t(r.normal(size=(2, b, h, w)) * 40, dev)).contiguous()
+    flow = r.normal(size=(b, 2, h, w)) * scale
+    flow[:, 0, : h // 4] += 3 * (d or 8)
+    flow = _t(flow, dev)
+    before = K.LAUNCHES["um"]
+    out = update_matrices(rr[0], rr[1], flow, d)
+    assert K.LAUNCHES["um"] == before + 1
+    ref = F.update_matrices_plain(rr[0], rr[1], flow, d)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=5e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,h,w,winsize", [
+    (2, 64, 64, 5), (3, 37, 70, 7), (2, 20, 22, 4), (1, 32, 32, 15),
+    (2, 5, 6, 15), (8, 256, 256, 5),
+])
+def test_uf_kernel_matches_plain(dev, b, h, w, winsize):
+    m = _t(np.random.default_rng(h + w + winsize).normal(size=(b, 5, h, w)) * 10,
+           dev)
+    before = K.LAUNCHES["uf"]
+    out = update_flow(m, winsize)
+    assert K.LAUNCHES["uf"] == before + 1
+    ref = F.update_flow_plain(m, winsize)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("n,h,w,d", [
     (3, 64, 80, 8), (2, 33, 47, None), (4, 19, 130, 3), (2, 256, 256, 8),
 ])
@@ -114,17 +150,26 @@ def test_wrappers_refuse_what_they_do_not_take(dev):
         compose_tap(f, f.transpose(2, 3), src, src, 0.5, 2, 0, 0)
     with pytest.raises(ValueError):
         compose_tap(f.cpu(), f, src, src, 0.5, 2, 0, 0)
+    with pytest.raises(ValueError):
+        update_matrices(r, r.cpu(), f, 2)
+    with pytest.raises(ValueError):
+        update_matrices(r, r, f.transpose(2, 3), 2)
+    with pytest.raises(ValueError):
+        update_flow(r.double(), 5)
+    with pytest.raises(ValueError, match="halo"):
+        update_flow(r, 101)
 
 
-@pytest.mark.parametrize("tap_mode", ["solve", "compose"])
-def test_denoise_card_matches_cpu(dev, tap_mode):
+@pytest.mark.parametrize("tap_mode,presmooth", [
+    ("solve", 0.0), ("compose", 0.0), ("solve", 1.5)])
+def test_denoise_card_matches_cpu(dev, tap_mode, presmooth):
     r = np.random.default_rng(0)
     z = np.arange(12)[:, None, None]
     y = np.arange(40)[None, :, None]
     x = np.arange(36)[None, None, :]
     vol = (100 * np.sin(0.3 * (x + 0.5 * z)) * np.cos(0.25 * (y - 0.3 * z))
            + r.normal(0, 10, (12, 40, 36))).astype(np.float32)
-    cfg = FilterConfig(flow=FlowConfig(tap_mode=tap_mode))
+    cfg = FilterConfig(flow=FlowConfig(tap_mode=tap_mode, presmooth=presmooth))
     on_card = denoise(vol, cfg).cpu().numpy()
     on_cpu = denoise(vol, cfg, device="cpu").numpy()
     mse = np.mean((on_card.astype(np.float64) - on_cpu) ** 2)

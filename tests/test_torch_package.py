@@ -22,6 +22,8 @@ from flowdenoising_tpu_torch.io.mrc import write_mrc
 from flowdenoising_tpu_torch.ops.cuda import build
 from flowdenoising_tpu_torch.ops.cuda.compose import compose_tap
 from flowdenoising_tpu_torch.ops.cuda.sample import displace_sample
+from flowdenoising_tpu_torch.ops.cuda.uf import update_flow
+from flowdenoising_tpu_torch.ops.cuda.um import update_matrices
 from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
 
 torch.set_num_threads(1)
@@ -64,9 +66,6 @@ def test_default_device_cuda_raises_without_cuda(mrc_in, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--max_displacement", "auto"], "A8"),
-    (["--flow_presmooth", "1.0"], "A8"),
-    (["--flow_presmooth", "auto"], "A8"),
     (["--precision", "bfloat16"], "A9"),
     (["--dtype", "bfloat16"], "A9"),
     (["--stream"], "A10"),
@@ -80,11 +79,20 @@ def test_unported_flags_exit_naming_roadmap_item(flags, item, mrc_in, tmp_path):
                   "--device", "cpu", *flags])
 
 
+@pytest.mark.parametrize("flags,message", [
+    (["--max_displacement", "bogus"], "integer or 'auto'"),
+    (["--flow_presmooth", "bogus"], "number or 'auto'"),
+])
+def test_bad_auto_flag_values_exit(flags, message, mrc_in, tmp_path):
+    with pytest.raises(SystemExit, match=message):
+        cli.main(["-i", str(mrc_in), "-o", str(tmp_path / "o.mrc"),
+                  "--device", "cpu", *flags])
+
+
 def test_library_refuses_unported_settings():
     with pytest.raises(NotImplementedError, match="A9"):
         FlowConfig(precision="bfloat16").check_ported()
-    with pytest.raises(NotImplementedError, match="A8"):
-        FlowConfig(presmooth=1.0).check_ported()
+    FlowConfig(presmooth=1.0).check_ported()   # ported (ROADMAP A8)
     FlowConfig().check_ported()
     FlowConfig(tap_mode="compose", symmetric_adjacent=True,
                adjacent_displacement=2).check_ported()
@@ -115,7 +123,8 @@ def test_from_reference_round_trips(jcfg):
 
 def test_nvcc_command_targets_sm_90a():
     srcs = build.sources()
-    assert [s.name for s in srcs] == ["compose.cu", "sample.cu", "umuf.cu"]
+    assert [s.name for s in srcs] == ["compose.cu", "sample.cu", "uf.cu",
+                                      "um.cu", "umuf.cu"]
     for src in srcs:
         cmd = build.compile_command(src, Path("x.o"))
         assert "arch=compute_90a,code=sm_90a" in cmd
@@ -126,6 +135,18 @@ def test_nvcc_command_targets_sm_90a():
     lib = build.library_path()
     assert lib.parent == REPO / "build" / "flowdenoising_tpu_torch"
     assert lib.name.startswith("libfdt_kernels-") and lib.suffix == ".so"
+
+
+def test_library_name_follows_the_shared_headers(monkeypatch, tmp_path):
+    # umuf.cu and um.cu share farneback.cuh: an edit of the header alone
+    # must name a new library, so no stale build is reused
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    first = build.library_path()
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert build.library_path() != first
+    assert [s.name for s in build.sources()] == ["k.cu"]
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -147,3 +168,7 @@ def test_wrappers_refuse_other_devices():
         umuf_iterate(r, r, f, 1, 2, 5)
     with pytest.raises(ValueError, match="no kernel"):
         compose_tap(f, f, src, src, 0.5, 2, 0, 0)
+    with pytest.raises(ValueError, match="no kernel"):
+        update_matrices(r, r, f, 2)
+    with pytest.raises(ValueError, match="no kernel"):
+        update_flow(r, 5)
