@@ -20,17 +20,20 @@ Phases, one or more lines of output each (any failure exits non-zero):
                ... -s 2 2 2) on a seeded size^3 blob volume with noise,
                through MRC files: at --max_displacement 8 solve mode,
                compose mode (--tap_flow compose), compose with
-               --symmetric_adjacent and solve with --flow_presmooth auto;
-               then auto_v2, the CLI's default flow setup with -v 2 (the
-               auto displacement probe, the profiled run and its measured
-               stage report).  Each path runs with the launch counts set to
-               0 just before it; the counts must be what its probe, tap and
-               level loops imply, the output finite and closer to the clean
-               volume than the input.  Then a warm timed run of ``denoise``
-               per path, a torch.profiler run of solve and compose for the
-               device-time split, the cost of the -v 2 profiling, and the
-               reconstructed stage report (K-um and K-uf) beside the
-               measured one.
+               --symmetric_adjacent and solve with --flow_presmooth auto
+               (which must switch presmooth on); then auto_v2, the CLI's
+               default flow setup with -v 2 (the auto displacement probe,
+               the profiled run and its measured stage report), and the
+               same command once more with the trace read as empty, so the
+               CLI falls back to the reconstructed stage report (K-um and
+               K-uf) on the card.  Each CLI run has the launch counts set
+               to 0 just before it; the counts must be what its probe, tap,
+               level and report loops imply, the output finite and closer
+               to the clean volume than the input.  Then a warm timed run
+               of ``denoise`` per path, which must equal the CLI's output, a
+               torch.profiler run of solve and compose for the device-time
+               split, the cost of the -v 2 profiling, and the two stage
+               reports side by side.
 5. e2e      -- a 24x96x96 volume through ``denoise`` on the card (kernels)
                and on the CPU (plain versions), in solve and in compose
                mode and presmoothed: PSNR >= 55 dB between them.
@@ -109,9 +112,10 @@ UM_FLOPS = 70                  # footprint, five sampled channels, M
 
 
 def uf_flops(winsize: int) -> int:
-    """Per pixel: 5 * winsize^2 adds and 5 scales in the box sum, ~12 in
-    the 2x2 solve."""
-    return 5 * winsize * winsize + 5 + 12
+    """Per pixel, what the function needs (not what a kernel happens to
+    do): a separable box sum of 2 * (2r+1) adds per channel, r =
+    winsize // 2, 5 scales, ~12 in the 2x2 solve."""
+    return 5 * 2 * (2 * (winsize // 2) + 1) + 5 + 12
 
 
 def umuf_flops(winsize: int) -> int:
@@ -499,12 +503,17 @@ def device_split(fn) -> tuple[float, float, list]:
 
 PATHS = {
     # name: (CLI flags beyond -s 2 2 2 --max_displacement 8, FlowConfig
-    # fields); --flow_presmooth auto is resolved from the volume
-    "solve": ([], {}),
-    "compose": (["--tap_flow", "compose"], {"tap_mode": "compose"}),
+    # fields, noise std); --flow_presmooth auto is resolved from the volume.
+    # Noise std 40 against blob amplitudes 50-200 puts the input near 21 dB,
+    # where the 3-pass sigma-2 filter gains clearly (+6-7 dB at 48^3 on the
+    # CPU path); the presmooth policy reads rel 0.455 there, on the edge of
+    # its 0.45 threshold, so its path gets std 60 (rel 0.68 at 256^3), where
+    # presmooth must come on.
+    "solve": ([], {}, 40.0),
+    "compose": (["--tap_flow", "compose"], {"tap_mode": "compose"}, 40.0),
     "compose_symmetric": (["--tap_flow", "compose", "--symmetric_adjacent"],
-                          {"tap_mode": "compose", "symmetric_adjacent": True}),
-    "presmooth_auto": (["--flow_presmooth", "auto"], {}),
+                          {"tap_mode": "compose", "symmetric_adjacent": True}, 40.0),
+    "presmooth_auto": (["--flow_presmooth", "auto"], {}, 60.0),
 }
 
 
@@ -520,21 +529,29 @@ def phase_main(dev, size: int, seed: int) -> dict:
     from flowdenoising_tpu_torch.ops import cuda as K
 
     clean = blob_volume(size, size, size, seed)
-    # noise std 40 against blob amplitudes 50-200: the input sits near
-    # 21 dB, where the 3-pass sigma-2 filter gains clearly (+6-7 dB at 48^3
-    # on the CPU path)
-    noisy = clean + np.random.default_rng(seed + 1).normal(
-        0.0, 40.0, clean.shape).astype(np.float32)
-    p_in = psnr(noisy, clean)
+    inputs = {}
+
+    def noisy_input(std):
+        """(noisy volume, its MRC file) at noise ``std``, made once."""
+        if std not in inputs:
+            vol = clean + np.random.default_rng(seed + 1).normal(
+                0.0, std, clean.shape).astype(np.float32)
+            path = Path(tmp) / f"noisy_{std:g}.mrc"
+            write_mrc(path, vol)
+            inputs[std] = vol, path
+        return inputs[std]
+
     counts = {}
     with tempfile.TemporaryDirectory() as tmp:
-        src = Path(tmp) / "noisy.mrc"
-        write_mrc(src, noisy)
-        for name, (flags, fields) in PATHS.items():
+        for name, (flags, fields, std) in PATHS.items():
+            noisy, src = noisy_input(std)
+            p_in = psnr(noisy, clean)
             # sigma 2, wrap, D = 8, float32
             cfg = FilterConfig(flow=FlowConfig(**fields))
             if "--flow_presmooth" in flags:
                 cfg = resolve_auto_presmooth(noisy, cfg)
+                require(cfg.flow.presmooth > 0, f"{name}: the noise policy left "
+                        f"presmooth off at noise std {std}")
             dst = Path(tmp) / f"denoised_{name}.mrc"
             K.reset_launches()
             t0 = time.perf_counter()
@@ -562,8 +579,12 @@ def phase_main(dev, size: int, seed: int) -> dict:
             secs = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated()
             rerun = float(np.abs(warm.cpu().numpy() - out).max())
+            # the kernels are deterministic, and the CLI resolves the same
+            # config (presmooth included) from the same volume
+            require(rerun == 0, f"{name}: warm denoise differs from the CLI's "
+                    f"output by {rerun}")
             print(f"[4 main] {size}^3 CLI {name} denoise (sigma 2, D=8, wrap, "
-                  f"presmooth {cfg.flow.presmooth}): "
+                  f"noise std {std:g}, presmooth {cfg.flow.presmooth}): "
                   f"launches {launches} as expected; PSNR vs clean {p_in:.2f} -> "
                   f"{p_out:.2f} dB; CLI run {cold:.2f} s (cold, incl. I/O); warm "
                   f"denoise {secs:.3f} s = {clean.size / secs / 1e6:.2f} Mvoxel/s; "
@@ -579,25 +600,46 @@ def phase_main(dev, size: int, seed: int) -> dict:
                       flush=True)
             del vol, warm
             counts[name] = launches
+        noisy, src = noisy_input(40.0)
         counts["auto_v2"], counts["stage_report"] = path_auto_v2(
             dev, Path(tmp), src, clean, noisy)
     return counts
 
 
+def cli_v2(args: list, report_hooks: dict) -> tuple[int, float, dict]:
+    """``cli.main(args)`` with launch counts set to 0 just before it and
+    read just after, and the -v 2 report functions of ``report_hooks``
+    ({(module, name): replacement}) in place while it runs.  Returns (exit
+    code, seconds, launches)."""
+    from flowdenoising_tpu_torch import cli
+    from flowdenoising_tpu_torch.ops import cuda as K
+
+    saved = {key: getattr(*key) for key in report_hooks}
+    for (module, name), fn in report_hooks.items():
+        setattr(module, name, fn)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(args)
+    finally:
+        for (module, name), fn in saved.items():
+            setattr(module, name, fn)
+    return rc, time.perf_counter() - t0, dict(K.LAUNCHES)
+
+
 def path_auto_v2(dev, tmp: Path, src: Path, clean, noisy):
     """The CLI's default flow setup with -v 2 (no --max_displacement: the
-    auto probe picks the bound), its measured stage report, the cost of the
-    profiling, and the reconstructed report (K-um, K-uf) beside the measured
-    one.  Returns (the CLI run's launches, the reconstruction's)."""
-    from flowdenoising_tpu_torch import cli
+    auto probe picks the bound), twice: once with its measured stage report,
+    once with the trace read as empty, which sends the CLI to its fallback,
+    the reconstructed report (K-um, K-uf) on the card.  Between the two, the
+    cost of the profiling.  Returns (the first run's launches, the
+    second's)."""
     from flowdenoising_tpu_torch.config import FilterConfig, FlowConfig
     from flowdenoising_tpu_torch.core.autodisp import probe_displacement
     from flowdenoising_tpu_torch.core.pipeline import denoise
     from flowdenoising_tpu_torch.io.mrc import read_mrc
-    from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
     from flowdenoising_tpu_torch.ops import cuda as K
-    from flowdenoising_tpu_torch.utils import trace_report
-    from flowdenoising_tpu_torch.utils.stage_report import device_stage_report
+    from flowdenoising_tpu_torch.utils import stage_report, trace_report
 
     size = clean.shape[0]
     # the probe alone first, for its launches and seconds (the CLI's probe
@@ -610,36 +652,36 @@ def path_auto_v2(dev, tmp: Path, src: Path, clean, noisy):
     (max_d, adj_d), = picked
     cfg = FilterConfig(flow=FlowConfig(max_displacement=max_d,
                                        adjacent_displacement=adj_d))
+    args = ["-i", str(src), "-s", "2", "2", "2", "-v", "2"]
+    p_in = psnr(noisy, clean)
 
-    # the CLI, with its measured report captured on the way out
-    reports = []
+    def check_output(dst, run):
+        out, _ = read_mrc(dst)
+        require(out.shape == clean.shape and bool(np.isfinite(out).all()),
+                f"{run}: output shape or non-finite values")
+        p_out = psnr(out, clean)
+        require(p_out > p_in, f"{run}: PSNR vs clean {p_out:.2f} dB <= input's "
+                f"{p_in:.2f} dB")
+        return out, p_out
+
+    # run 1: the measured report, captured on the way out
+    reports, recons = [], []
     measured_stage_report = trace_report.measured_stage_report
+    device_stage_report = stage_report.device_stage_report
 
     def capture(path):
         reports.append(measured_stage_report(path))
         return reports[-1]
 
     dst = tmp / "denoised_auto_v2.mrc"
-    trace_report.measured_stage_report = capture
-    K.reset_launches()
-    t0 = time.perf_counter()
-    try:
-        rc = cli.main(["-i", str(src), "-o", str(dst), "-s", "2", "2", "2",
-                       "-v", "2"])
-    finally:
-        trace_report.measured_stage_report = measured_stage_report
-    cold = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    rc, cold, launches = cli_v2(
+        [*args, "-o", str(dst)],
+        {(trace_report, "measured_stage_report"): capture})
     require(rc == 0, f"auto_v2: cli.main returned {rc}")
     want = {k: probe[k] + n for k, n in expected_launches(clean.shape, cfg).items()}
     require(launches == want, f"auto_v2: launch counts {launches}, expected "
             f"{want} (probe {probe} + the denoise at D={max_d})")
-    out, _ = read_mrc(dst)
-    require(out.shape == clean.shape and bool(np.isfinite(out).all()),
-            "auto_v2: output shape or non-finite values")
-    p_in, p_out = psnr(noisy, clean), psnr(out, clean)
-    require(p_out > p_in, f"auto_v2: PSNR vs clean {p_out:.2f} dB <= input's "
-            f"{p_in:.2f} dB")
+    out, p_out = check_output(dst, "auto_v2")
     require(len(reports) == 1 and reports[0] is not None,
             "auto_v2: the CLI logged no measured stage report")
     measured = reports[0]
@@ -672,26 +714,46 @@ def path_auto_v2(dev, tmp: Path, src: Path, clean, noisy):
           "included)", flush=True)
     del vol
 
-    # the reconstruction: K-um + K-uf at every level, K-sample per pass
-    recon = {}
-    K.reset_launches()
-    recon_s = wall_s(lambda: recon.update(device_stage_report(
-        clean.shape, cfg, get_gaussian_kernels(cfg.sigma), device=dev)))
-    rlaunch = dict(K.LAUNCHES)
-    want = stage_report_launches(clean.shape, cfg)
-    require(rlaunch == want, f"stage report: launch counts {rlaunch}, expected {want}")
+    # run 2: the trace read as empty, as on a CPU run, so the CLI falls back
+    # to the reconstruction on the card: K-um + K-uf at every level,
+    # K-sample per pass
+    def timed_recon(*a, **kw):
+        t0 = time.perf_counter()
+        recons.append(device_stage_report(*a, **kw))
+        torch.cuda.synchronize()
+        recons.append(time.perf_counter() - t0)
+        return recons[0]
+
+    dst = tmp / "denoised_auto_v2_recon.mrc"
+    rc, cold2, rlaunch = cli_v2(
+        [*args, "-o", str(dst)],
+        {(trace_report, "measured_stage_report"): lambda path: None,
+         (stage_report, "device_stage_report"): timed_recon})
+    require(rc == 0, f"auto_v2 reconstruction run: cli.main returned {rc}")
+    require(len(recons) == 2, "auto_v2 reconstruction run: the CLI did not "
+            "fall back to the reconstructed stage report")
+    recon, recon_s = recons
+    report_n = stage_report_launches(clean.shape, cfg)
+    want = {k: probe[k] + n + report_n[k]
+            for k, n in expected_launches(clean.shape, cfg).items()}
+    require(rlaunch == want, f"auto_v2 reconstruction run: launch counts {rlaunch}, "
+            f"expected {want} (probe + denoise + the reconstruction's {report_n})")
     if size == 256:
         require(rlaunch["um"] == rlaunch["uf"] == 144,
                 f"stage report at 256^3: {rlaunch['um']} K-um, {rlaunch['uf']} K-uf")
+    out2, _ = check_output(dst, "auto_v2 reconstruction run")
+    require(bool((out2 == out).all()), "auto_v2: the two CLI runs' outputs differ")
     keys = sorted(set(measured) | set(recon))
     table = "; ".join(f"{k} {1e3 * measured[k]:.1f}" if k in measured else f"{k} --"
                       for k in keys)
     table2 = "; ".join(f"{k} {1e3 * recon[k]:.1f}" if k in recon else f"{k} --"
                        for k in keys)
-    print(f"[4 main] {size}^3 stage split, ms: measured (trace of the CLI run): "
-          f"{table}; reconstructed (per-op timings, OFE_solve = split K-um + "
-          f"K-uf): {table2}; reconstruction took {recon_s:.2f} s, launches "
-          f"{rlaunch}", flush=True)
+    print(f"[4 main] {size}^3 stage split, ms: measured (trace of the first CLI "
+          f"run): {table}; reconstructed (the second CLI run's fallback, per-op "
+          f"timings, OFE_solve = split K-um + K-uf): {table2}; reconstruction "
+          f"took {recon_s:.2f} s of that run's {cold2:.2f} s; its launches "
+          f"{rlaunch} = probe + denoise + reconstruction as expected; same "
+          "output as the first run", flush=True)
     return launches, rlaunch
 
 
@@ -731,7 +793,7 @@ def main() -> int:
 
     # each kernel's launches from the path that defines it: K-umuf and
     # K-sample from solve mode, K-compose from compose mode, K-um and K-uf
-    # from the -v 2 reconstruction
+    # from the auto_v2 CLI run that falls back to the reconstruction
     kernels = {
         "umuf": ("flowdenoising_tpu_torch/csrc/umuf.cu",
                  "flowdenoising_tpu/ops/pallas/umuf.py:87", "solve"),

@@ -261,18 +261,21 @@ def main(argv=None) -> int:
     shape = np.shape(vol)
     progress = ProgressReporter(total_units=int(sum(shape)))
 
-    # -v 2: profile the actual run for the measured per-stage report
+    # -v 2: profile the actual run for the measured per-stage report; the
+    # profiler's stop and the trace export are a phase of their own, so the
+    # filter phase times the same work as at -v 1
     trace_ctx = contextlib.nullcontext({})
     if verbosity >= 2:
         from flowdenoising_tpu_torch.utils.trace_report import traced_run
-        trace_ctx = traced_run()
+        trace_ctx = traced_run(lambda: prof.phase("trace_export"))
 
-    with prof.phase("filter"), progress, trace_ctx as trace_state:
-        def on_pass(i, _v):
-            progress.advance(shape[i])
+    with trace_ctx as trace_state:
+        with prof.phase("filter"), progress:
+            def on_pass(i, _v):
+                progress.advance(shape[i])
 
-        filtered = denoise(vol, cfg, kernels=kernels, on_pass=on_pass,
-                           device=device).cpu().numpy()
+            filtered = denoise(vol, cfg, kernels=kernels, on_pass=on_pass,
+                               device=device).cpu().numpy()
 
     log_volume_stats(str(args.output), filtered)
 

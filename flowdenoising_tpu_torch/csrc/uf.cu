@@ -14,8 +14,9 @@
 // g12^2 + 1e-3), u = (g11*h2 - g12*h1)*idet, v = (g22*h1 - g12*h2)*idet.
 //
 // What bounds it on the H100: it must read M (5 channels) once and write
-// the flow (2): 28 B per pixel and 5*(2r+1)^2 adds -- bound by bytes (470
-// MB, 0.140 ms at (256, 5, 256, 256) and 3.35 TB/s).  The design is the
+// the flow (2): 28 B per pixel, and a separable box sum needs 5*2*(2r+1)
+// adds (this kernel does 5*(2r+1)^2) -- bound by bytes at every winsize
+// (470 MB, 0.140 ms at (256, 5, 256, 256) and 3.35 TB/s).  The design is the
 // simple one: each block loads its TILE_Y x TILE_X tile of M plus a halo
 // of r on every side into shared memory, border indices clamped on the
 // load (replicate), then sums the window as K-umuf's phase 2 does

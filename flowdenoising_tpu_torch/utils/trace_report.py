@@ -40,21 +40,30 @@ _COPY_CATS = ("gpu_memcpy", "gpu_memset")
 
 
 @contextlib.contextmanager
-def traced_run():
+def traced_run(export_phase=contextlib.nullcontext):
     """Profile the enclosed block (CPU ops, and CUDA kernels where there is
     a card); yields a dict that receives ``{"path": <Chrome trace>}`` once
-    the block ends.  The caller removes the file."""
+    the block ends.  Stopping the profiler and writing the trace run inside
+    ``export_phase()`` (the CLI times them as its ``trace_export`` phase,
+    apart from the block).  The caller removes the file."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     state = {}
-    with profile(activities=activities) as prof:
+    prof = profile(activities=activities)
+    prof.start()
+    try:
         yield state
-    fd, path = tempfile.mkstemp(prefix="fdt_trace_", suffix=".json")
-    os.close(fd)
-    prof.export_chrome_trace(path)
+    except BaseException:
+        prof.stop()
+        raise
+    with export_phase():
+        prof.stop()
+        fd, path = tempfile.mkstemp(prefix="fdt_trace_", suffix=".json")
+        os.close(fd)
+        prof.export_chrome_trace(path)
     state["path"] = path
 
 

@@ -5,8 +5,10 @@ CPU, and the CLI's default invocation with ``-v 2 --device cpu``, which
 probes the bound, resolves presmooth and, with no device event in its
 trace, logs the reconstruction."""
 
+import contextlib
 import json
 import logging
+import os
 import re
 import tempfile
 
@@ -109,8 +111,32 @@ def test_traced_cpu_run_has_no_device_event():
         assert "user_annotation" in cats and "kernel" not in cats
         assert measured_stage_report(state["path"]) is None
     finally:
-        import os
         os.remove(state["path"])
+
+
+def test_traced_run_exports_in_its_own_phase(tmp_path, monkeypatch):
+    """The profiler's stop and the trace export run once, inside
+    ``export_phase()``, after the block; a block that raises stops the
+    profiler and writes no trace."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    seen = []
+
+    @contextlib.contextmanager
+    def phase():
+        seen.append("enter")
+        yield
+        seen.append("exit")
+
+    with traced_run(phase) as state:
+        torch.ones(8).add_(1)
+        assert seen == [] and "path" not in state
+    assert seen == ["enter", "exit"]
+    assert [str(p) for p in tmp_path.glob("fdt_trace_*")] == [state["path"]]
+    os.remove(state["path"])
+    with pytest.raises(ValueError), traced_run(phase):
+        raise ValueError("the block failed")
+    assert seen == ["enter", "exit"]
+    assert not list(tmp_path.glob("fdt_trace_*"))
 
 
 @pytest.mark.parametrize("tap_mode", ["solve", "compose"])
@@ -151,7 +177,7 @@ def test_cli_default_flow_setup_v2_on_cpu(tmp_path, monkeypatch, capsys):
     presmooth = re.search(r"presmooth=([0-9.]+)", log)
     assert picked and presmooth, log
     assert "[stages] reconstructed" in log and "MEASURED" not in log
-    assert "[profile] probe" in log
+    assert "[profile] probe" in log and "[profile] trace_export" in log
     assert not list(tmp_path.glob("fdt_trace_*"))
     cfg = FilterConfig(sigma=(1.0, 1.0, 1.0), flow=FlowConfig(
         levels=2, max_displacement=int(picked[1]),
