@@ -15,7 +15,10 @@ Phases, one or more lines of output each (any failure exits non-zero):
                kernel tests; times of both, the least time the card could
                take for the same work (bound), and for K-sample the time of
                torch.nn.functional.grid_sample on the same sampling (the
-               port never calls it).
+               port never calls it).  K-umuf also at winsize 15 and on
+               planes smaller than its tile, its main-path call at one
+               iteration a launch against the planner's default, and its
+               time at each pyramid level of the main path.
 4. main     -- paths through the CLI (python -m flowdenoising_tpu_torch
                ... -s 2 2 2) on a seeded size^3 blob volume with noise,
                through MRC files: at --max_displacement 8 solve mode,
@@ -185,7 +188,7 @@ def phase_kernels(dev, seed: int) -> dict:
     from flowdenoising_tpu_torch.ops import farneback as F
     from flowdenoising_tpu_torch.ops.cuda.compose import (
         compose_tap, compose_tap_plain)
-    from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
+    from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf, umuf_iterate
     from flowdenoising_tpu_torch.ops.warp import (
         displace_sample, displace_sample_plain)
 
@@ -259,52 +262,87 @@ def phase_kernels(dev, seed: int) -> dict:
     del src, flow, out, ref, fc, gx, gy, grid, src4
 
     # K-umuf: batch 16 at every level of a 256^2 plane with its d_k, iters 3,
-    # winsize 5 and 7; atol 5e-4, rtol 1e-4
+    # winsize 5, 7 and 15, and planes smaller than the tile; atol 5e-4, rtol
+    # 1e-4 (the design intends 0: the log line says whether it is)
+    def umuf_check(what, rr, flow, iters, d, ws, per_launch=None):
+        out = umuf_iterate(rr[0], rr[1], flow, iters, d, ws, per_launch)
+        ref = F.umuf_iterate_plain(rr[0], rr[1], flow, iters, d, ws)
+        torch.cuda.synchronize()
+        diff = (out - ref).abs()
+        e = float(diff.max())
+        require(bool((diff <= 5e-4 + 1e-4 * ref.abs()).all()),
+                f"K-umuf {what}: max abs err {e}")
+        return e, "bit-identical" if torch.equal(out, ref) else "NOT bit-identical"
+
+    def umuf_operands(b, h, w, d):
+        imgs = t(r.normal(size=(2, b, h, w)) * 40)
+        return (F.poly_expand(imgs).contiguous(),
+                t(r.normal(size=(b, 2, h, w)) * 1.5 * d / 9))
+
     err = 0.0
-    for size, d in ((256, 9), (128, 5), (64, 3), (32, 2)):
-        imgs = t(r.normal(size=(2, 16, size, size)) * 40)
-        rr = F.poly_expand(imgs).contiguous()
-        flow = t(r.normal(size=(16, 2, size, size)) * 1.5 * d / 9)
-        for ws in (5, 7):
-            out = umuf_iterate(rr[0], rr[1], flow, 3, d, ws)
-            ref = F.umuf_iterate_plain(rr[0], rr[1], flow, 3, d, ws)
-            torch.cuda.synchronize()
-            diff = (out - ref).abs()
-            ok = bool((diff <= 5e-4 + 1e-4 * ref.abs()).all())
-            e = float(diff.max())
-            require(ok, f"K-umuf {size}^2 d={d} ws={ws}: max abs err {e}")
+    for size, d in ((256, 9), (128, 5), (64, 3), (32, 2), (20, 2), (3, 2)):
+        rr, flow = umuf_operands(16, size, size, d)
+        for ws in (5, 7, 15):
+            plan = plan_umuf(size, size, ws, 3)
+            e, same = umuf_check(f"{size}^2 d={d} ws={ws}", rr, flow, 3, d, ws)
             err = max(err, e)
             ms = cuda_ms(lambda: umuf_iterate(rr[0], rr[1], flow, 3, d, ws))
             pms = cuda_ms(lambda: F.umuf_iterate_plain(rr[0], rr[1], flow, 3, d, ws),
                           reps=3)
-            print(f"[3 kernels] K-umuf (16,5,{size},{size}) d={d} ws={ws} iters=3: "
-                  f"max_abs_err {e:.3g}, kernel {ms:.4f} ms, plain {pms:.4f} ms",
-                  flush=True)
-    # the main path's largest call: level 0 of a 256^3 pass, batch 256
-    imgs = t(r.normal(size=(2, 256, 256, 256)) * 40)
-    rr = F.poly_expand(imgs).contiguous()
-    del imgs
-    flow = t(r.normal(size=(256, 2, 256, 256)) * 1.5)
-    out = umuf_iterate(rr[0], rr[1], flow, 3, 9, 5)
-    ref = F.umuf_iterate_plain(rr[0], rr[1], flow, 3, 9, 5)
-    torch.cuda.synchronize()
-    diff = (out - ref).abs()
-    e = float(diff.max())
-    require(bool((diff <= 5e-4 + 1e-4 * ref.abs()).all()),
-            f"K-umuf main shape: max abs err {e}")
-    ms = cuda_ms(lambda: umuf_iterate(rr[0], rr[1], flow, 3, 9, 5), reps=5)
+            print(f"[3 kernels] K-umuf (16,5,{size},{size}) d={d} ws={ws} iters=3, "
+                  f"tile {plan.tile_y}x{plan.tile_x} launches {plan.launches}: "
+                  f"max_abs_err {e:.3g} ({same}), kernel {ms:.4f} ms, plain "
+                  f"{pms:.4f} ms", flush=True)
+    # the main path's largest call: level 0 of a 256^3 pass, batch 256; then
+    # the same call one iteration a launch (k = 1) against the planner's
+    # default, interleaved k1, default, default, k1
+    rr, flow = umuf_operands(256, 256, 256, 9)
+    plan = plan_umuf(256, 256, 5, 3)
+    e, same = umuf_check("main shape", rr, flow, 3, 9, 5)
+    e1, same1 = umuf_check("main shape k=1", rr, flow, 3, 9, 5, per_launch=1)
+    by_k = {1: [], plan.per_launch: []}
+    for k in (1, plan.per_launch, plan.per_launch, 1):
+        by_k[k].append(cuda_ms(lambda: umuf_iterate(rr[0], rr[1], flow, 3, 9, 5, k),
+                               reps=5))
+    ms = sum(by_k[plan.per_launch]) / len(by_k[plan.per_launch])
     pms = cuda_ms(lambda: F.umuf_iterate_plain(rr[0], rr[1], flow, 3, 9, 5),
                   reps=2, warmup=1)
     # the function is 3 chained iterations: r0, r1 and the flow read once,
     # the flow written once
     px = flow.numel() // 2
     bms, by = bound(4 * (2 * rr[0].numel() + 2 * flow.numel()), 3 * umuf_flops(5) * px)
-    print(f"[3 kernels] K-umuf main-path call (256,5,256,256) d=9 ws=5 iters=3: "
-          f"max_abs_err {e:.3g}, kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-          f"{bms:.4f} ms ({by}); no single library call", flush=True)
-    res["umuf"] = dict(max_abs_err=max(err, e), ms=ms, plain_ms=pms,
+    times = "; ".join(f"k={k}: " + ", ".join(f"{v:.4f}" for v in vs) + " ms"
+                      for k, vs in by_k.items())
+    print(f"[3 kernels] K-umuf main-path call (256,5,256,256) d=9 ws=5 iters=3, "
+          f"tile {plan.tile_y}x{plan.tile_x}, {plan.threads} threads, "
+          f"{plan.smem} B shared: max_abs_err {e:.3g} ({same}; k=1 {e1:.3g}, "
+          f"{same1}), kernel {ms:.4f} ms at the default k={plan.per_launch} "
+          f"({times}), plain {pms:.4f} ms, bound {bms:.4f} ms ({by}); no single "
+          "library call", flush=True)
+    res["umuf"] = dict(max_abs_err=max(err, e, e1), ms=ms, plain_ms=pms,
                        bound_ms=bms, bound_by=by, library_ms=None)
-    del rr, flow, out, ref, diff
+    # winsize 15 at the main shape: the planner's k against k = 3 forced
+    p15 = plan_umuf(256, 256, 15, 3)
+    e15, same15 = umuf_check("main shape ws=15", rr, flow, 3, 9, 15)
+    t15 = {k: cuda_ms(lambda: umuf_iterate(rr[0], rr[1], flow, 3, 9, 15, k), reps=3)
+           for k in (p15.per_launch, 3)}
+    p15k3 = plan_umuf(256, 256, 15, 3, 3)
+    print(f"[3 kernels] K-umuf (256,5,256,256) d=9 ws=15 iters=3: max_abs_err "
+          f"{e15:.3g} ({same15}); default k={p15.per_launch} tile "
+          f"{p15.tile_y}x{p15.tile_x} {t15[p15.per_launch]:.4f} ms; k=3 tile "
+          f"{p15k3.tile_y}x{p15k3.tile_x} (phase-1 work {p15k3.phase1_work:.2f}x) "
+          f"{t15[3]:.4f} ms", flush=True)
+    del rr, flow
+    # per-level times of the main path's calls at batch 256, for weighting by
+    # launches
+    for size, d in ((256, 9), (128, 5), (64, 3), (32, 2)):
+        rr, flow = umuf_operands(256, size, size, d)
+        lms = cuda_ms(lambda: umuf_iterate(rr[0], rr[1], flow, 3, d, 5))
+        lp = plan_umuf(size, size, 5, 3)
+        print(f"[3 kernels] K-umuf level (256,5,{size},{size}) d={d} ws=5 iters=3: "
+              f"{lms:.4f} ms, {len(lp.launches)} launch(es), tile "
+              f"{lp.tile_y}x{lp.tile_x}", flush=True)
+        del rr, flow
 
     # K-compose: flow atol 1e-5, accumulator atol 1e-4 (the bars of the JAX
     # package's compose kernel test); links of scale 0.6 (adjacent drift),
@@ -413,15 +451,20 @@ def expected_launches(shape, cfg) -> dict:
     """Launches the tap and level loops imply for one denoise of ``shape``:
     solve mode solves every tap pair and warps with K-sample; compose mode
     solves the adjacent pairs once per direction (once with
-    symmetric_adjacent) and runs one K-compose per tap.  A denoise never
+    symmetric_adjacent) and runs one K-compose per tap.  A solve launches
+    K-umuf as its planner plans each pyramid level.  A denoise never
     launches K-um or K-uf (its solves run fused in K-umuf)."""
     from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
+    from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf
+    from flowdenoising_tpu_torch.ops.resize import pyramid_sizes
     planes = [(shape[1], shape[2]), (shape[0], shape[2]), (shape[0], shape[1])]
     f = cfg.flow
     n = {"compose": 0, "sample": 0, "uf": 0, "um": 0, "umuf": 0}
     for taps, (h, w) in zip(get_gaussian_kernels(cfg.sigma), planes):
         n_taps = len(taps) - 1
-        per_solve = (f.clamped_levels(h, w) + 1) * f.iterations
+        sizes = pyramid_sizes(h, w, f.clamped_levels(h, w), f.pyr_scale)
+        per_solve = sum(len(plan_umuf(hk, wk, f.winsize, f.iterations).launches)
+                        for hk, wk in sizes)
         if f.tap_mode == "compose":
             n["compose"] += n_taps
             n["umuf"] += (1 if f.symmetric_adjacent else 2) * per_solve

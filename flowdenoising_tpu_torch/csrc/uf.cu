@@ -15,16 +15,21 @@
 //
 // What bounds it on the H100: it must read M (5 channels) once and write
 // the flow (2): 28 B per pixel, and a separable box sum needs 5*2*(2r+1)
-// adds (this kernel does 5*(2r+1)^2) -- bound by bytes at every winsize
-// (470 MB, 0.140 ms at (256, 5, 256, 256) and 3.35 TB/s).  The design is the
-// simple one: each block loads its TILE_Y x TILE_X tile of M plus a halo
-// of r on every side into shared memory, border indices clamped on the
-// load (replicate), then sums the window as K-umuf's phase 2 does
-// (farneback.cuh: box_solve_tile): the rows of each window column, then the
-// columns, in ascending tap order as the plain separable sum adds them, so
-// with -fmad=false the result equals the plain version's.  The TPU kernel's
-// pre-padded row tiles and lane-padded VMEM buffers answer TPU layout
-// limits and are not carried over.
+// adds -- bound by bytes at every winsize (470 MB, 0.140 ms at (256, 5,
+// 256, 256) and 3.35 TB/s).  Each block loads its TILE_Y x TILE_X tile of
+// M plus a halo of r on every side into shared memory, border indices
+// clamped on the load (replicate), then runs K-umuf's phase 2
+// (farneback.cuh: box_solve_tile -> box_solve): the separable sum, first
+// the 2r+1 rows of each window (one thread per channel and tile column;
+// for r <= 7 the column's window rows kept in registers), then 2r+1 of
+// those row sums (one thread per output pixel), each in ascending tap
+// order as the plain separable sum adds them and afresh for every pixel,
+// so with -fmad=false the result equals the plain version's.  That is
+// 2*(2r+1) shared loads per pixel and channel where summing each window
+// whole took (2r+1)^2; what is left above the bytes bound is the tile's
+// load and the row pass, one column a thread, down the tile.  The TPU
+// kernel's pre-padded row tiles and lane-padded VMEM buffers answer TPU
+// layout limits and are not carried over.
 
 #include "farneback.cuh"
 

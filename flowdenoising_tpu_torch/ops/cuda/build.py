@@ -38,7 +38,9 @@ SIGNATURES = {
                          _I),
     "fdt_sample": ([_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _F, _I,
                     _P], _I),
-    "fdt_umuf_step": ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _P], _I),
+    "fdt_umuf": ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _I, _I, _I, _I,
+                  _P], _I),
+    "fdt_umuf_smem": ([_I, _I, _I, _I, _I, _I], ctypes.c_longlong),
     "fdt_update_flow": ([_P, _P, _I, _I, _I, _I, _F, _P], _I),
     "fdt_update_flow_smem": ([_I], ctypes.c_longlong),
     "fdt_update_matrices": ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _P], _I),

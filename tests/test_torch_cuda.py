@@ -23,7 +23,8 @@ from flowdenoising_tpu_torch.ops import farneback as F
 from flowdenoising_tpu_torch.ops.cuda.compose import compose_tap, compose_tap_plain
 from flowdenoising_tpu_torch.ops.cuda.uf import update_flow
 from flowdenoising_tpu_torch.ops.cuda.um import update_matrices
-from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
+from flowdenoising_tpu_torch.ops.cuda.build import load_library
+from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf, umuf_iterate
 from flowdenoising_tpu_torch.ops.warp import displace_sample, displace_sample_plain
 
 pytestmark = pytest.mark.cuda
@@ -60,17 +61,22 @@ def test_sample_kernel_matches_plain(dev, b, c, h, w, d):
     torch.testing.assert_close(out, ref, atol=2e-4, rtol=0)
 
 
-@pytest.mark.parametrize("b,h,w,winsize,d", [
-    (2, 64, 64, 5, 9), (3, 37, 70, 7, 3), (2, 8, 9, 5, 2), (2, 20, 22, 4, 3),
-    (1, 48, 40, 15, 5), (2, 32, 32, 5, None), (1, 3, 3, 5, 2),
+@pytest.mark.parametrize("b,h,w,winsize,d,per_launch", [
+    (2, 64, 64, 5, 9, None), (3, 37, 70, 7, 3, None), (2, 8, 9, 5, 2, None),
+    (2, 20, 22, 4, 3, None), (1, 48, 40, 15, 5, None), (2, 32, 32, 5, None, None),
+    (1, 3, 3, 5, 2, None), (2, 100, 130, 15, 9, None), (2, 100, 130, 15, 9, 3),
+    (2, 100, 130, 5, 9, 1), (2, 100, 130, 5, 9, 2),
 ])
-def test_umuf_kernel_matches_plain(dev, b, h, w, winsize, d):
+def test_umuf_kernel_matches_plain(dev, b, h, w, winsize, d, per_launch):
     r = np.random.default_rng(h * w + winsize)
     rr = F.poly_expand(_t(r.normal(size=(2, b, h, w)) * 40, dev)).contiguous()
     flow = _t(r.normal(size=(b, 2, h, w)) * 2, dev)
+    plan = plan_umuf(h, w, winsize, 3, per_launch)
+    assert plan.smem == load_library().fdt_umuf_smem(
+        h, w, winsize, plan.per_launch, plan.tile_y, plan.tile_x)
     before = K.LAUNCHES["umuf"]
-    out = umuf_iterate(rr[0], rr[1], flow, 3, d, winsize)
-    assert K.LAUNCHES["umuf"] == before + 3
+    out = umuf_iterate(rr[0], rr[1], flow, 3, d, winsize, per_launch)
+    assert K.LAUNCHES["umuf"] == before + len(plan.launches)
     ref = F.umuf_iterate_plain(rr[0], rr[1], flow, 3, d, winsize)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, atol=5e-4, rtol=1e-4)
@@ -144,6 +150,14 @@ def test_wrappers_refuse_what_they_do_not_take(dev):
         umuf_iterate(r, r, f.transpose(2, 3), 1, 2, 5)
     with pytest.raises(ValueError):
         umuf_iterate(r, r.cpu(), f, 1, 2, 5)
+    # a window halo too wide for shared memory on a 256^2 plane (an 8^2
+    # plane's region is the plane, and any winsize fits it)
+    rw = torch.zeros(1, 5, 256, 256, device=dev)
+    fw = torch.zeros(1, 2, 256, 256, device=dev)
+    before = K.LAUNCHES["umuf"]
+    with pytest.raises(ValueError, match="halo"):
+        umuf_iterate(rw, rw, fw, 3, 2, 101)
+    assert K.LAUNCHES["umuf"] == before
     with pytest.raises(ValueError):
         compose_tap(f, f, src, src.double(), 0.5, 2, 0, 0)
     with pytest.raises(ValueError):

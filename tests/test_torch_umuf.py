@@ -6,7 +6,10 @@ hazards (even winsize, planes narrower than the border bands, no bound).
 atol 5e-4, rtol 1e-4 (the bar of tests/test_pallas_umuf.py).
 
 The CUDA kernel is held against this plain version on the card by
-``chip_smoke.py`` and by tests/test_torch_cuda.py.
+``chip_smoke.py`` and by tests/test_torch_cuda.py.  Here, where no kernel
+runs, the kernel's decomposition -- output tiles with r*k context, k
+iterations a launch -- is emulated in plain PyTorch and held to the plain
+version bit for bit, and the launch planner to the card's shared memory.
 """
 
 import numpy as np
@@ -19,7 +22,10 @@ from flowdenoising_tpu.ops import farneback as JF
 from flowdenoising_tpu.ops.pallas import umuf as JU
 
 from flowdenoising_tpu_torch.ops import cuda as K
-from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
+from flowdenoising_tpu_torch.ops import farneback as F
+from flowdenoising_tpu_torch.ops.cuda.umuf import (
+    MAX_PHASE1_WORK, SMEM_PER_BLOCK, SMEM_TWO_BLOCKS, plan_umuf, umuf_iterate,
+    umuf_smem_bytes)
 
 torch.set_num_threads(1)
 
@@ -87,4 +93,134 @@ def test_cpu_wrapper_counts_no_launch_and_checks_shapes():
     assert K.LAUNCHES["umuf"] == before
     with pytest.raises(ValueError):
         umuf_iterate(_cf(r0), _cf(r1)[:, :4], _cf(flow), 1, 2, 5)
+
+
+# --- the kernel's decomposition (csrc/umuf.cu), emulated on the CPU ---
+
+def _tiled_emulation(r0, r1, flow, iters, d, winsize, tile_y, tile_x, k):
+    """K-umuf's decomposition in plain PyTorch: ceil(iters / k) launches; in
+    each, every tile_y x tile_x output tile starts from the flow on the tile
+    grown by k*r (r = winsize // 2), clamped to the plane; iteration j
+    computes M on the tile grown by (k - j) * r and the flow on the tile
+    grown by (k - 1 - j) * r, replicating M only where the region meets the
+    plane's edge.  Flow outside the region is NaN, so a window that reached
+    past it would show."""
+    b, _, h, w = flow.shape
+    r = winsize // 2
+    nan = torch.full_like(flow, float("nan"))
+    for n in (k,) * (iters // k) + ((iters % k,) if iters % k else ()):
+        out = nan.clone()
+        for ty0 in range(0, h, tile_y):
+            for tx0 in range(0, w, tile_x):
+                ty1, tx1 = min(ty0 + tile_y, h), min(tx0 + tile_x, w)
+
+                def grown(c):
+                    return (slice(max(ty0 - c, 0), min(ty1 + c, h)),
+                            slice(max(tx0 - c, 0), min(tx1 + c, w)))
+
+                f = nan.clone()
+                f[..., grown(n * r)[0], grown(n * r)[1]] = \
+                    flow[..., grown(n * r)[0], grown(n * r)[1]]
+                for j in range(n):
+                    my, mx = grown((n - j) * r)
+                    # M is pointwise in the flow: compute it on the plane,
+                    # keep the region; the box sum replicates the region's
+                    # edges, which are the plane's or lie r outside the
+                    # flow region kept below, as far as its windows reach
+                    m = F.update_matrices_plain(r0, r1, f, d)[..., my, mx]
+                    new = F.update_flow_plain(m, winsize)
+                    oy, ox = grown((n - 1 - j) * r)
+                    f = nan.clone()
+                    f[..., oy, ox] = new[..., oy.start - my.start:oy.stop - my.start,
+                                         ox.start - mx.start:ox.stop - mx.start]
+                out[..., ty0:ty1, tx0:tx1] = f[..., ty0:ty1, tx0:tx1]
+        flow = out
+    return flow
+
+
+def _cf_setup(b, h, w, seed):
+    r = np.random.default_rng(seed)
+    imgs = torch.from_numpy((r.normal(size=(2, b, h, w)) * 40).astype(np.float32))
+    rr = F.poly_expand(imgs).contiguous()
+    flow = torch.from_numpy((r.normal(size=(b, 2, h, w)) * 2).astype(np.float32))
+    flow[:, 0, : h // 4] += 5.0          # a band beyond the bound d = 2
+    return rr[0], rr[1], flow
+
+
+@pytest.mark.parametrize("h,w,winsize,iters,d,k,tile", [
+    (3, 3, 5, 3, 2, None, None),          # plane smaller than the tile
+    (3, 3, 15, 2, None, 1, (2, 2)),
+    (37, 70, 5, 3, 2, None, None),        # not a multiple of the tile
+    (37, 70, 5, 3, None, 2, (8, 16)),     # k < iters: launches of 2 and 1
+    (37, 70, 4, 2, 2, None, (8, 8)),      # even winsize
+    (37, 70, 7, 3, 2, 3, (16, 16)),
+    (37, 70, 15, 3, None, None, None),
+    (37, 70, 15, 2, 2, 2, (8, 8)),
+    (256, 20, 5, 1, 2, None, None),
+    (256, 20, 7, 3, None, 1, (32, 8)),
+    (256, 20, 15, 3, 2, None, (16, 16)),
+    (256, 20, 4, 3, 2, 2, None),
+])
+def test_tiled_emulation_equals_plain_bitwise(h, w, winsize, iters, d, k, tile):
+    """The kernel's tiling with r*k context, at the planner's plan or at a
+    given tile and k, equals umuf_iterate_plain bit for bit."""
+    r0, r1, flow = _cf_setup(1, h, w, seed=h * w + winsize + iters)
+    plan = plan_umuf(h, w, winsize, iters, k)
+    ty, tx = tile if tile else (plan.tile_y, plan.tile_x)
+    got = _tiled_emulation(r0, r1, flow, iters, d, winsize, ty, tx,
+                           plan.per_launch)
+    ref = F.umuf_iterate_plain(r0, r1, flow, iters, d, winsize)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
+
+
+def _largest_winsize():
+    ws = 1
+    while True:
+        try:
+            plan_umuf(4096, 4096, ws + 1, 1)
+        except ValueError:
+            return ws
+        ws += 1
+
+
+def test_planner_fits_every_winsize_it_accepts():
+    largest = _largest_winsize()
+    assert largest >= 15              # OpenCV's usual winsizes, with room
+    for ws in range(1, largest + 1):
+        for iters in range(1, 6):
+            for h, w in ((4096, 4096), (256, 256), (37, 70), (3, 3)):
+                for k in (None, *range(1, iters + 1)):
+                    try:
+                        plan = plan_umuf(h, w, ws, iters, k)
+                    except ValueError:
+                        # a fixed k > 1 may not fit; k = 1 always does
+                        assert k is not None and k > 1
+                        continue
+                    assert sum(plan.launches) == iters
+                    assert all(1 <= n <= plan.per_launch for n in plan.launches)
+                    assert plan.smem == umuf_smem_bytes(
+                        h, w, ws, plan.per_launch, plan.tile_y, plan.tile_x)
+                    assert plan.smem <= SMEM_TWO_BLOCKS < SMEM_PER_BLOCK
+                    assert plan.tile_y <= h and plan.tile_x <= w
+                    assert plan.threads in (256, 512)
+                    if k is None and plan.per_launch > 1:
+                        assert plan.phase1_work <= MAX_PHASE1_WORK
+
+
+def test_planner_default_at_the_main_path():
+    # winsize 5, 3 iterations: one launch per level at every level of a
+    # 256^2 plane, so 4 per tap solve
+    for s in (256, 128, 64, 32):
+        assert plan_umuf(s, s, 5, 3).launches == (3,)
+
+
+def test_planner_refuses_windows_wider_than_shared_memory():
+    largest = _largest_winsize()
+    # umuf_iterate plans before it loads the kernel library, so on the card
+    # such a winsize raises this ValueError and launches nothing
+    for ws in (largest + 1, largest + 2, 101):
+        for iters in (1, 3):
+            with pytest.raises(ValueError, match="halo"):
+                plan_umuf(256, 256, ws, iters)
 
