@@ -18,13 +18,23 @@ Phases, one or more lines of output each (any failure exits non-zero):
                port never calls it).  K-umuf also at winsize 15 and on
                planes smaller than its tile, its main-path call at one
                iteration a launch against the planner's default, and its
-               time at each pyramid level of the main path.
+               time at each pyramid level of the main path.  Then the packed
+               forms (bf16 sources, --precision bfloat16) K-umuf-bf16,
+               K-compose-bf16 (with and without the bf16 carry rounding) and
+               K-um-bf16, each equal to its plain version bit for bit, timed
+               beside its float32 form, bound at bf16 source width.
 4. main     -- paths through the CLI (python -m flowdenoising_tpu_torch
                ... -s 2 2 2) on a seeded size^3 blob volume with noise,
                through MRC files: at --max_displacement 8 solve mode,
                compose mode (--tap_flow compose), compose with
                --symmetric_adjacent and solve with --flow_presmooth auto
-               (which must switch presmooth on); then auto_v2, the CLI's
+               (which must switch presmooth on), the bf16 fast mode in
+               solve mode (solve_bf16: --dtype bfloat16 --precision
+               bfloat16, run with -v 2 and the trace read as empty, so the
+               reconstructed stage report runs K-um-bf16) and in the JAX
+               README's fast mode (fast: compose, symmetric adjacent flows,
+               bf16), each also against the same path at float32; then
+               auto_v2, the CLI's
                default flow setup with -v 2 (the auto displacement probe,
                the profiled run and its measured stage report), and the
                same command once more with the trace read as empty, so the
@@ -39,7 +49,8 @@ Phases, one or more lines of output each (any failure exits non-zero):
                reports side by side.
 5. e2e      -- a 24x96x96 volume through ``denoise`` on the card (kernels)
                and on the CPU (plain versions), in solve and in compose
-               mode and presmoothed: PSNR >= 55 dB between them.
+               mode, presmoothed, and in both bf16 paths: PSNR >= 55 dB
+               between them, or bit-identical.
 
 The last lines are the card's nvidia-smi line, a JSON object of the kernels
 and, last, ``{"ok": true, "device": {...}}``.
@@ -48,6 +59,7 @@ and, last, ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -444,33 +456,177 @@ def phase_kernels(dev, seed: int) -> dict:
                         library_ms=None)
         del out, ref, diff
     res["uf"] = dict(max_abs_err=err, **main)
+    del m
+    res.update(packed_forms(r, t, banded_flow, umuf_operands))
     return res
 
 
+def pair_ms(f32_fn, bf16_fn, reps: int) -> tuple[float, float, str]:
+    """Mean ms of a kernel's float32 and bf16 forms, timed in turns (f32,
+    bf16, bf16, f32), and the four times as text."""
+    times = {"f32": [], "bf16": []}
+    for form in ("f32", "bf16", "bf16", "f32"):
+        times[form].append(cuda_ms(f32_fn if form == "f32" else bf16_fn, reps=reps))
+    text = "; ".join(f"{k} " + ", ".join(f"{v:.4f}" for v in vs) for k, vs in times.items())
+    return sum(times["f32"]) / 2, sum(times["bf16"]) / 2, text
+
+
+def packed_forms(r, t, banded_flow, umuf_operands) -> dict:
+    """The packed forms (--precision bfloat16: the sampling source in
+    bfloat16) at the main paths' shapes: each must equal its plain version
+    bit for bit; timed beside its float32 form; bound at bf16 source
+    width."""
+    from flowdenoising_tpu_torch.ops import farneback as F
+    from flowdenoising_tpu_torch.ops.cuda.compose import (
+        compose_tap, compose_tap_plain)
+    from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
+
+    bf16 = torch.bfloat16
+    res = {}
+
+    def same(what, out, ref):
+        torch.cuda.synchronize()
+        e = float((out - ref).abs().max())
+        require(torch.equal(out, ref), f"{what}: not bit-identical to its plain "
+                f"version (max abs err {e})")
+        return e
+
+    # K-umuf-bf16: the main path's largest call, level 0 of a 256^3 pass;
+    # and the float32 form with the bf16 border ramp that a bf16 pass's
+    # tiny 32^2 level runs
+    rt, ft = umuf_operands(64, 32, 32, 2)
+    e_tiny = same("K-umuf 32^2 d=2 with the bf16 ramp",
+                  umuf_iterate(rt[0], rt[1], ft, 3, 2, 5, ramp_bf16=True),
+                  F.umuf_iterate_plain(rt[0], rt[1], ft, 3, 2, 5, ramp_bf16=True))
+    del rt, ft
+    rr, flow = umuf_operands(256, 256, 256, 9)
+    r1b = rr[1].to(bf16)
+    e = same("K-umuf-bf16 (256,5,256,256) d=9",
+             umuf_iterate(rr[0], r1b, flow, 3, 9, 5),
+             F.umuf_iterate_plain(rr[0], r1b, flow, 3, 9, 5))
+    f32_ms, ms, times = pair_ms(lambda: umuf_iterate(rr[0], rr[1], flow, 3, 9, 5),
+                                lambda: umuf_iterate(rr[0], r1b, flow, 3, 9, 5), 5)
+    pms = cuda_ms(lambda: F.umuf_iterate_plain(rr[0], r1b, flow, 3, 9, 5),
+                  reps=2, warmup=1)
+    # r0 (float32) and r1 (bf16) read once, the flow read and written once
+    px = flow.numel() // 2
+    bms, by = bound(4 * (rr[0].numel() + 2 * flow.numel()) + 2 * r1b.numel(),
+                    3 * umuf_flops(5) * px)
+    print(f"[3 kernels] K-umuf-bf16 main-path call (256,5,256,256) d=9 ws=5 "
+          f"iters=3, r1 bf16: max_abs_err {e:.3g} (bit-identical; the float32 "
+          f"form with the bf16 ramp at (64,5,32,32) d=2: {e_tiny:.3g}), kernel "
+          f"{ms:.4f} ms, float32 form {f32_ms:.4f} ms ({times}), plain "
+          f"{pms:.4f} ms, bound {bms:.4f} ms ({by}, 46 B/px)", flush=True)
+    res["umuf_bf16"] = dict(max_abs_err=max(e, e_tiny), ms=ms, plain_ms=pms,
+                            bound_ms=bms, bound_by=by, library_ms=None)
+    del rr, flow, r1b
+
+    # K-compose-bf16: the main path's call at 256^3 (n 256, a 271-plane
+    # link stack and the 272-plane padded stack at a mid-run tap's
+    # offsets), without and with the bf16 carry rounding of --dtype
+    # bfloat16 (the fast mode rounds it)
+    n = 256
+    link = t(r.normal(size=(n + 15, 2, n, n)) * 0.6)
+    nb = t(r.normal(size=(n + 16, n, n)) * 50)
+    linkb, nbb = link.to(bf16), nb.to(bf16)
+    flow = banded_flow(n, n, n, 8)
+    acc = t(r.normal(size=(n, n, n)) * 20)
+    wgt = float(np.float32(0.0702))
+    # flow and accumulator read and written, n bf16 link planes and n bf16
+    # neighbour planes read once
+    bms, by = bound(4 * (2 * flow.numel() + 2 * acc.numel())
+                    + 2 * (flow.numel() + acc.numel()), COMPOSE_FLOPS * acc.numel())
+    err = 0.0
+    for round_carry in (False, True):
+        fk, ak = flow.clone(), acc.clone()
+        compose_tap(linkb, fk, nbb, ak, wgt, 8, 7, 8, round_carry=round_carry)
+        fr, ar = compose_tap_plain(linkb[7:7 + n], flow, nbb[8:8 + n], acc, wgt,
+                                   8, round_carry)
+        what = f"K-compose-bf16 round_carry={round_carry}"
+        err = max(err, same(what + " flow", fk, fr), same(what + " acc", ak, ar))
+        # the kernels update fk, ak in place on every timed call
+        f32_ms, ms, times = pair_ms(
+            lambda: compose_tap(link, fk, nb, ak, wgt, 8, 7, 8, round_carry=round_carry),
+            lambda: compose_tap(linkb, fk, nbb, ak, wgt, 8, 7, 8,
+                                round_carry=round_carry), 10)
+        pms = cuda_ms(lambda: compose_tap_plain(linkb[7:7 + n], flow, nbb[8:8 + n],
+                                                acc, wgt, 8, round_carry), reps=3)
+        print(f"[3 kernels] K-compose-bf16 ({n},{n},{n}) D=8 round_carry="
+              f"{round_carry}, link/nb bf16 stacks {n + 15}/{n + 16} at 7/8: "
+              f"max_abs_err {err:.3g} (bit-identical), kernel {ms:.4f} ms, float32 "
+              f"form {f32_ms:.4f} ms ({times}), plain {pms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}, 30 B/px)", flush=True)
+    res["compose_bf16"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                               bound_by=by, library_ms=None)
+    del link, nb, linkb, nbb, flow, acc, fk, ak, fr, ar
+
+    # K-um-bf16: the -v 2 reconstruction's call (8, 5, 256, 256) at d 9,
+    # and the main shape (256, 5, 256, 256) beside the float32 form's
+    rr = F.poly_expand(t(r.normal(size=(2, 256, 256, 256)) * 40)).contiguous()
+    err, main = 0.0, None
+    for b in (256, 8):
+        r0, r1b = rr[0, :b], rr[1, :b].to(bf16)
+        flow = banded_flow(b, 256, 256, 9, scale=1.5)
+        err = max(err, same(f"K-um-bf16 ({b},5,256,256) d=9",
+                            F.update_matrices(r0, r1b, flow, 9),
+                            F.update_matrices_plain(r0, r1b, flow, 9)))
+        f32_ms, ms, times = pair_ms(lambda: F.update_matrices(r0, rr[1, :b], flow, 9),
+                                    lambda: F.update_matrices(r0, r1b, flow, 9), 10)
+        pms = cuda_ms(lambda: F.update_matrices_plain(r0, r1b, flow, 9), reps=3)
+        # r0 (float32), r1 (bf16) and the flow read once, M written once
+        px = flow.numel() // 2
+        bms, by = bound(4 * (2 * r0.numel() + flow.numel()) + 2 * r1b.numel(),
+                        UM_FLOPS * px)
+        print(f"[3 kernels] K-um-bf16 ({b},5,256,256) d=9, r1 bf16: max_abs_err "
+              f"{err:.3g} (bit-identical), kernel {ms:.4f} ms, float32 form "
+              f"{f32_ms:.4f} ms ({times}), plain {pms:.4f} ms, bound {bms:.4f} ms "
+              f"({by}, 58 B/px)", flush=True)
+        main = main or dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                            library_ms=None)
+    res["um_bf16"] = dict(max_abs_err=err, **main)
+    return res
+
+
+def no_launches() -> dict:
+    from flowdenoising_tpu_torch.ops import cuda as K
+    return dict.fromkeys(K.LAUNCHES, 0)
+
+
 def expected_launches(shape, cfg) -> dict:
-    """Launches the tap and level loops imply for one denoise of ``shape``:
-    solve mode solves every tap pair and warps with K-sample; compose mode
-    solves the adjacent pairs once per direction (once with
-    symmetric_adjacent) and runs one K-compose per tap.  A solve launches
-    K-umuf as its planner plans each pyramid level.  A denoise never
-    launches K-um or K-uf (its solves run fused in K-umuf)."""
+    """Launches the tap and level loops imply for one denoise of ``shape``,
+    per kernel form: solve mode solves every tap pair and warps with
+    K-sample; compose mode solves the adjacent pairs once per direction
+    (once with symmetric_adjacent) and runs one K-compose per tap.  A solve
+    launches K-umuf as its planner plans each pyramid level, in the packed
+    form (umuf_bf16) on the levels where the JAX package packs
+    (``_packed_at_level``: --precision bfloat16, outside the tiny route).
+    K-compose runs packed (compose_bf16) with --precision bfloat16.  A
+    denoise never launches K-um or K-uf (its solves run fused in K-umuf)."""
     from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
     from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf
+    from flowdenoising_tpu_torch.ops.farneback import _packed_at_level
     from flowdenoising_tpu_torch.ops.resize import pyramid_sizes
     planes = [(shape[1], shape[2]), (shape[0], shape[2]), (shape[0], shape[1])]
     f = cfg.flow
-    n = {"compose": 0, "sample": 0, "uf": 0, "um": 0, "umuf": 0}
+    # the adjacent solves' bound in compose mode
+    adj = f
+    if f.tap_mode == "compose" and None not in (f.max_displacement,
+                                                f.adjacent_displacement):
+        adj = dataclasses.replace(f, max_displacement=min(
+            f.max_displacement, f.adjacent_displacement))
+    packed = f.precision == "bfloat16" and f.max_displacement is not None
+    compose = "compose_bf16" if packed else "compose"
+    n = no_launches()
     for taps, (h, w) in zip(get_gaussian_kernels(cfg.sigma), planes):
         n_taps = len(taps) - 1
         sizes = pyramid_sizes(h, w, f.clamped_levels(h, w), f.pyr_scale)
-        per_solve = sum(len(plan_umuf(hk, wk, f.winsize, f.iterations).launches)
-                        for hk, wk in sizes)
-        if f.tap_mode == "compose":
-            n["compose"] += n_taps
-            n["umuf"] += (1 if f.symmetric_adjacent else 2) * per_solve
-        else:
-            n["sample"] += n_taps
-            n["umuf"] += n_taps * per_solve
+        solves = ((1 if f.symmetric_adjacent else 2) if f.tap_mode == "compose"
+                  else n_taps)
+        for k, (hk, wk) in enumerate(sizes):
+            form = "umuf_bf16" if _packed_at_level(adj, k, hk, wk) else "umuf"
+            n[form] += solves * len(plan_umuf(hk, wk, f.winsize,
+                                              f.iterations).launches)
+        n[compose if f.tap_mode == "compose" else "sample"] += n_taps
     return n
 
 
@@ -478,13 +634,17 @@ def stage_report_launches(shape, cfg) -> dict:
     """Launches of the -v 2 reconstruction of a flow denoise of ``shape``:
     each op is timed as 3 runs (one warm-up, two timed) of _REPS chained
     calls -- the split iteration (K-um, K-uf) at every pyramid level of
-    every pass, the tap warp (K-sample) once per pass."""
+    every pass, K-um packed (um_bf16) with --precision bfloat16 and a bound,
+    the tap warp (K-sample) once per pass."""
     from flowdenoising_tpu_torch.utils.stage_report import _REPS
     planes = [(shape[1], shape[2]), (shape[0], shape[2]), (shape[0], shape[1])]
-    n = {"compose": 0, "sample": 0, "uf": 0, "um": 0, "umuf": 0}
+    f = cfg.flow
+    um = ("um_bf16" if f.precision == "bfloat16" and f.max_displacement is not None
+          else "um")
+    n = no_launches()
     for h, w in planes:
-        levels = cfg.flow.clamped_levels(h, w) + 1
-        n["um"] += 3 * _REPS * levels
+        levels = f.clamped_levels(h, w) + 1
+        n[um] += 3 * _REPS * levels
         n["uf"] += 3 * _REPS * levels
         n["sample"] += 3 * _REPS
     return n
@@ -557,7 +717,21 @@ PATHS = {
     "compose_symmetric": (["--tap_flow", "compose", "--symmetric_adjacent"],
                           {"tap_mode": "compose", "symmetric_adjacent": True}, 40.0),
     "presmooth_auto": (["--flow_presmooth", "auto"], {}, 60.0),
+    # the bf16 fast mode (after the float32 path each is compared with)
+    "solve_bf16": (["--dtype", "bfloat16", "--precision", "bfloat16"],
+                   {"dtype": "bfloat16", "precision": "bfloat16"}, 40.0),
+    "fast": (["--tap_flow", "compose", "--symmetric_adjacent", "--dtype",
+              "bfloat16", "--precision", "bfloat16"],
+             {"tap_mode": "compose", "symmetric_adjacent": True,
+              "dtype": "bfloat16", "precision": "bfloat16"}, 40.0),
 }
+# each bf16 path's float32 counterpart in PATHS
+FLOAT32_OF = {"solve_bf16": "solve", "fast": "compose_symmetric"}
+# paths run with -v 2 and the measured report read as empty, so the CLI
+# runs the reconstructed stage report (K-um, K-uf, K-sample) on the card
+V2_FALLBACK = ("solve_bf16",)
+# paths with a torch.profiler device-time split of their warm denoise
+SPLIT = ("solve", "compose", "solve_bf16", "fast")
 
 
 def phase_main(dev, size: int, seed: int) -> dict:
@@ -570,6 +744,7 @@ def phase_main(dev, size: int, seed: int) -> dict:
     from flowdenoising_tpu_torch.core.pipeline import denoise
     from flowdenoising_tpu_torch.io.mrc import read_mrc, write_mrc
     from flowdenoising_tpu_torch.ops import cuda as K
+    from flowdenoising_tpu_torch.utils import trace_report
 
     clean = blob_volume(size, size, size, seed)
     inputs = {}
@@ -584,29 +759,41 @@ def phase_main(dev, size: int, seed: int) -> dict:
             inputs[std] = vol, path
         return inputs[std]
 
-    counts = {}
+    counts, outputs = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, (flags, fields, std) in PATHS.items():
             noisy, src = noisy_input(std)
             p_in = psnr(noisy, clean)
-            # sigma 2, wrap, D = 8, float32
+            # sigma 2, wrap, D = 8, float32 unless the path says bfloat16
             cfg = FilterConfig(flow=FlowConfig(**fields))
             if "--flow_presmooth" in flags:
                 cfg = resolve_auto_presmooth(noisy, cfg)
                 require(cfg.flow.presmooth > 0, f"{name}: the noise policy left "
                         f"presmooth off at noise std {std}")
             dst = Path(tmp) / f"denoised_{name}.mrc"
-            K.reset_launches()
-            t0 = time.perf_counter()
-            rc = cli.main(["-i", str(src), "-o", str(dst), "-s", "2", "2", "2",
-                           "--max_displacement", "8", "-v", "1", *flags])
-            cold = time.perf_counter() - t0
-            launches = dict(K.LAUNCHES)
+            args = ["-i", str(src), "-o", str(dst), "-s", "2", "2", "2",
+                    "--max_displacement", "8", *flags]
+            want = expected_launches(clean.shape, cfg)
+            if name in V2_FALLBACK:
+                rc, cold, launches = cli_v2(
+                    [*args, "-v", "2"],
+                    {(trace_report, "measured_stage_report"): lambda path: None})
+                report = stage_report_launches(clean.shape, cfg)
+                want = {k: n + report[k] for k, n in want.items()}
+            else:
+                rc, cold, launches = cli_v2([*args, "-v", "1"], {})
             require(rc == 0, f"{name}: cli.main returned {rc}")
             out, _ = read_mrc(dst)
-            want = expected_launches(clean.shape, cfg)
             require(launches == want,
                     f"{name}: launch counts {launches}, expected {want}")
+            if cfg.flow.precision == "bfloat16" and size in (256, 512):
+                # packed levels on K-umuf-bf16; at 256^3 the tiny coarsest
+                # level (32^2, d 2) on float32 K-umuf; at 512^3 the coarsest
+                # level is 64^2, and every level is packed
+                require(launches["umuf_bf16"] > 0 and (launches["umuf"] > 0)
+                        == (size == 256), f"{name}: K-umuf launches by form "
+                        f"{launches['umuf']} float32, {launches['umuf_bf16']} bf16")
+            outputs[name] = out
             require(out.shape == clean.shape, f"{name}: output shape {out.shape}")
             require(bool(np.isfinite(out).all()), f"{name}: non-finite output")
             p_out = psnr(out, clean)
@@ -626,14 +813,20 @@ def phase_main(dev, size: int, seed: int) -> dict:
             # config (presmooth included) from the same volume
             require(rerun == 0, f"{name}: warm denoise differs from the CLI's "
                     f"output by {rerun}")
+            against = ""
+            if name in FLOAT32_OF:
+                against = (f"; PSNR against the float32 path "
+                           f"{FLOAT32_OF[name]}: {psnr(out, outputs[FLOAT32_OF[name]]):.2f} dB")
             print(f"[4 main] {size}^3 CLI {name} denoise (sigma 2, D=8, wrap, "
-                  f"noise std {std:g}, presmooth {cfg.flow.presmooth}): "
+                  f"noise std {std:g}, presmooth {cfg.flow.presmooth}, dtype "
+                  f"{cfg.flow.dtype}, precision {cfg.flow.precision}): "
                   f"launches {launches} as expected; PSNR vs clean {p_in:.2f} -> "
-                  f"{p_out:.2f} dB; CLI run {cold:.2f} s (cold, incl. I/O); warm "
-                  f"denoise {secs:.3f} s = {clean.size / secs / 1e6:.2f} Mvoxel/s; "
-                  f"peak device memory {peak / 2**30:.2f} GiB; warm vs CLI output "
-                  f"max abs diff {rerun:.3g}", flush=True)
-            if name in ("solve", "compose"):
+                  f"{p_out:.2f} dB{against}; CLI run {cold:.2f} s (cold, incl. I/O"
+                  f"{', -v 2 profiling and reconstruction' if name in V2_FALLBACK else ''}); "
+                  f"warm denoise {secs:.3f} s = {clean.size / secs / 1e6:.2f} "
+                  f"Mvoxel/s; peak device memory {peak / 2**30:.2f} GiB; warm vs CLI "
+                  f"output max abs diff {rerun:.3g}", flush=True)
+            if name in SPLIT:
                 busy, wall, fams = device_split(lambda: denoise(vol, cfg))
                 split = "; ".join(f"{k} {ms:.1f} ms ({100 * ms / busy:.1f}%, {c})"
                                   for k, ms, c in fams)
@@ -806,16 +999,19 @@ def phase_e2e(dev, seed: int) -> None:
 
     vol = blob_volume(24, 96, 96, seed + 2)
     vol += np.random.default_rng(seed + 3).normal(0, 20, vol.shape).astype(np.float32)
-    for mode, presmooth in (("solve", 0.0), ("compose", 0.0), ("solve", 1.5)):
-        cfg = FilterConfig(flow=FlowConfig(tap_mode=mode, presmooth=presmooth))
+    fast = dict(dtype="bfloat16", precision="bfloat16")
+    for name, fields in (
+            ("solve", {}), ("compose", {"tap_mode": "compose"}),
+            ("solve presmooth 1.5", {"presmooth": 1.5}), ("solve_bf16", fast),
+            ("fast", {"tap_mode": "compose", "symmetric_adjacent": True, **fast})):
+        cfg = FilterConfig(flow=FlowConfig(**fields))
         on_card = denoise(vol, cfg, device=dev).cpu().numpy()
         on_cpu = denoise(vol, cfg, device="cpu").numpy()
         p = psnr(on_card, on_cpu)
-        require(p >= 55.0, f"{mode} presmooth {presmooth}: card vs CPU PSNR "
-                f"{p:.2f} dB < 55")
-        print(f"[5 e2e] 24x96x96 {mode} denoise, presmooth {presmooth}, card "
-              "(kernels) vs CPU (plain): "
-              f"PSNR {p:.2f} dB (bar 55); max abs diff "
+        require(p >= 55.0, f"{name}: card vs CPU PSNR {p:.2f} dB < 55")
+        same = "bit-identical" if np.array_equal(on_card, on_cpu) else "not bit-identical"
+        print(f"[5 e2e] 24x96x96 {name} denoise, card (kernels) vs CPU (plain): "
+              f"PSNR {p:.2f} dB (bar 55), {same}; max abs diff "
               f"{float(np.abs(on_card - on_cpu).max()):.3g}", flush=True)
 
 
@@ -834,9 +1030,11 @@ def main() -> int:
     counts = phase_main(dev, args.size, args.seed)
     phase_e2e(dev, args.seed)
 
-    # each kernel's launches from the path that defines it: K-umuf and
+    # each kernel form's launches from the path that defines it: K-umuf and
     # K-sample from solve mode, K-compose from compose mode, K-um and K-uf
-    # from the auto_v2 CLI run that falls back to the reconstruction
+    # from the auto_v2 CLI run that falls back to the reconstruction; the
+    # packed forms from the bf16 paths (K-um-bf16 from solve_bf16's
+    # reconstruction)
     kernels = {
         "umuf": ("flowdenoising_tpu_torch/csrc/umuf.cu",
                  "flowdenoising_tpu/ops/pallas/umuf.py:87", "solve"),
@@ -848,6 +1046,13 @@ def main() -> int:
                "flowdenoising_tpu/ops/pallas/update_matrices.py:54", "stage_report"),
         "uf": ("flowdenoising_tpu_torch/csrc/uf.cu",
                "flowdenoising_tpu/ops/pallas/update_flow.py:32", "stage_report"),
+        "umuf_bf16": ("flowdenoising_tpu_torch/csrc/umuf.cu",
+                      "flowdenoising_tpu/ops/pallas/umuf.py:87", "solve_bf16"),
+        "compose_bf16": ("flowdenoising_tpu_torch/csrc/compose.cu",
+                         "flowdenoising_tpu/ops/pallas/compose.py:141", "fast"),
+        "um_bf16": ("flowdenoising_tpu_torch/csrc/um.cu",
+                    "flowdenoising_tpu/ops/pallas/update_matrices.py:54",
+                    "solve_bf16"),
     }
     print(card)
     print(json.dumps({"kernels": [

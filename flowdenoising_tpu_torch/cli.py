@@ -6,7 +6,8 @@ Usage:
 
 The port runs the flow denoise in both tap modes (``--tap_flow solve``,
 the default, and ``--tap_flow compose`` with ``--symmetric_adjacent``) and
-``-n``, in float32 on one device, in memory.  The displacement bound is
+``-n``, in float32 or in the bf16 fast mode (``--dtype bfloat16
+--precision bfloat16``), on one device, in memory.  The displacement bound is
 probed from the volume by default (``--max_displacement auto``), and flows
 may be estimated from a presmoothed copy (``--flow_presmooth``).  ``-v 2``
 logs the per-stage device time: measured from a ``torch.profiler`` trace
@@ -90,9 +91,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--devices", type=int, default=None,
                    help="Number of devices (not yet ported: one device only, ROADMAP A11)")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
-                   help="Optical-flow compute dtype (bfloat16 not yet ported, ROADMAP A9)")
+                   help="Optical-flow pass dtype: bfloat16 carries the "
+                        "stack, the expansion pyramid, the tap flows and the "
+                        "accumulator in bf16 between kernels (the output is "
+                        "float32; not with --max_displacement 0, ROADMAP A9)")
     p.add_argument("--precision", choices=["float32", "bfloat16"], default="float32",
-                   help="Flow inner-pass precision (bfloat16 not yet ported, ROADMAP A9)")
+                   help="Flow inner-pass precision: bfloat16 samples the "
+                        "reference expansion (and, in compose mode, the "
+                        "link flows and neighbours) rounded to bf16, in the "
+                        "kernels' packed forms; with a displacement bound "
+                        "only.  --dtype bfloat16 --precision bfloat16 is the "
+                        "fast mode")
     p.add_argument("--tap_flow", choices=["solve", "compose"], default="solve",
                    help="Per-tap flow strategy: 'solve' = one Farneback solve per "
                         "tap pair; 'compose' = one solve per adjacent slice pair "
@@ -134,9 +143,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     """Exit, naming the ROADMAP item, on any flag of an unported feature."""
-    if args.dtype != "float32" or args.precision != "float32":
-        raise SystemExit("--dtype/--precision bfloat16 is not yet ported "
-                         "(ROADMAP A9)")
+    if (args.dtype == "bfloat16" and not args.no_OF
+            and args.max_displacement == 0):
+        raise SystemExit("--dtype bfloat16 with --max_displacement 0 (no "
+                         "bound) is not yet ported (ROADMAP A9)")
     if args.stream or args.checkpoint_dir:
         raise SystemExit("--stream and --checkpoint_dir are not yet ported "
                          "(ROADMAP A10)")
@@ -206,6 +216,8 @@ def main(argv=None) -> int:
             winsize=int(args.winsize),
             use_initial_flow=not args.recompute_flow,
             max_displacement=md if md > 0 else None,
+            dtype=args.dtype,
+            precision=args.precision,
             tap_mode=args.tap_flow,
             symmetric_adjacent=args.symmetric_adjacent,
             presmooth=0.0 if auto_presmooth else float(args.flow_presmooth),

@@ -62,13 +62,21 @@ class FlowConfig:
             raise ValueError(
                 f"unknown tap_mode {self.tap_mode!r}: expected 'solve' or "
                 "'compose'")
+        for name in ("dtype", "precision"):
+            if getattr(self, name) not in ("float32", "bfloat16"):
+                raise ValueError(f"unknown {name} {getattr(self, name)!r}: "
+                                 "expected 'float32' or 'bfloat16'")
 
     def check_ported(self) -> None:
         """Raise NotImplementedError, naming the ROADMAP item, for settings
-        the port does not run yet."""
-        if self.dtype != "float32" or self.precision != "float32":
+        the port does not run yet: a bfloat16 pass dtype with no bound,
+        where the JAX package runs Farneback and its exact gather in bf16
+        arithmetic.  (``precision`` bfloat16 with no bound is the float32
+        path there, and here.)"""
+        if self.dtype == "bfloat16" and self.max_displacement is None:
             raise NotImplementedError(
-                "bfloat16 dtype/precision is not yet ported (ROADMAP A9)")
+                "dtype bfloat16 with no displacement bound (max_displacement "
+                "None, --max_displacement 0) is not yet ported (ROADMAP A9)")
 
     def clamped_levels(self, height: int, width: int) -> int:
         """Number of pyramid levels actually used for an image size

@@ -19,6 +19,18 @@ slice is built once per pass and shared by all taps.  With
 ``FlowConfig.presmooth`` the pyramid is built from an in-plane blurred copy
 of the stack (``_estimation_stack``), while every tap warp samples the raw
 stack.
+
+The bf16 fast mode follows the JAX package's TPU path.  ``dtype``
+bfloat16: the stack is rounded to bf16 first, the tap weights are bf16
+constants, the pyramid is built in bf16 (``ops.farneback``), and the pass
+rounds to bf16 where that path carries bf16 between kernels -- each tap's
+solved flow, each weighted warp before it is added to the bf16
+accumulator, the adjacent flows, and the compose carry after every tap;
+the kernels compute in float32 from float32 copies, and the pass returns
+float32.  ``precision`` bfloat16: the packed kernel forms sample the
+pyramid's r1 and, in compose mode, the links and neighbours rounded to
+bf16 (with a bound only).  The solve-mode tap warp has no packed form in
+the JAX package: K-sample reads a float32 copy of the stack.
 """
 
 from __future__ import annotations
@@ -29,7 +41,7 @@ import numpy as np
 import torch
 
 from flowdenoising_tpu_torch.config import Boundary, FlowConfig
-from flowdenoising_tpu_torch.ops.blur import gaussian_blur
+from flowdenoising_tpu_torch.ops.blur import gaussian_blur, rounded
 from flowdenoising_tpu_torch.ops.cuda.compose import compose_tap
 from flowdenoising_tpu_torch.ops.farneback import (
     flow_from_pyramids, polyexp_pyramid, tap_solver)
@@ -93,27 +105,34 @@ def of_pass_padded(padded: torch.Tensor, taps: np.ndarray,
 
     Accumulation order as the JAX package's: center tap first, then the
     backward run (offsets -1 .. -ks2), then the forward run (+1 .. +ks2).
-    The accumulator is updated in place.
+    The accumulator is updated in place.  The result is float32.
     """
     flow_cfg.check_ported()
     taps = np.asarray(taps, dtype=np.float64)
     if len(taps) % 2 != 1:
         raise ValueError("kernel size must be odd")
+    dtype = getattr(torch, flow_cfg.dtype)
+    padded = padded.to(dtype)
     if flow_cfg.tap_mode == "compose":
         return _of_pass_composed(padded, taps, flow_cfg)
     ks2 = len(taps) // 2
     n = padded.shape[0] - 2 * ks2
     solve = tap_solver(_estimation_stack(padded, flow_cfg), ks2, n, flow_cfg)
-    acc = padded[ks2:ks2 + n] * float(np.float32(taps[ks2]))
+    # K-sample's source: the stack itself, or a float32 copy of the bf16
+    # stack (exact), made once per pass
+    src = padded.float()
+    acc = padded[ks2:ks2 + n] * rounded(taps[ks2], dtype)
     for sign in (-1, +1):
         flow = None   # each run starts from zero flow
         for j in range(1, ks2 + 1):
             start = ks2 + sign * j
             flow = solve(start, flow if flow_cfg.use_initial_flow else None)
-            warped = displace_sample(padded[start:start + n], flow[:, 0],
+            if dtype != torch.float32:
+                flow = flow.to(dtype).float()
+            warped = displace_sample(src[start:start + n], flow[:, 0],
                                      flow[:, 1], flow_cfg.max_displacement)
-            acc.add_(warped * float(np.float32(taps[ks2 + sign * j])))
-    return acc
+            acc.add_((warped * rounded(taps[ks2 + sign * j], dtype)).to(dtype))
+    return acc.float()
 
 
 def _of_pass_composed(padded: torch.Tensor, taps: np.ndarray,
@@ -128,11 +147,13 @@ def _of_pass_composed(padded: torch.Tensor, taps: np.ndarray,
     flow to the tap at distance j is composed outward, F_j = F_{j-1} +
     warp(link, F_{j-1}), and each tap adds the neighbour warped by F_j
     (K-compose).  The adjacent solves take no seed, so
-    ``use_initial_flow`` has no effect here.
+    ``use_initial_flow`` has no effect here.  padded is in the pass dtype;
+    the result is float32.
     """
     ks2 = len(taps) // 2
     n = padded.shape[0] - 2 * ks2
     d = flow_cfg.max_displacement
+    dtype = padded.dtype
     adj_cfg = flow_cfg
     if flow_cfg.adjacent_displacement is not None and d is not None:
         adj_cfg = dataclasses.replace(
@@ -140,15 +161,20 @@ def _of_pass_composed(padded: torch.Tensor, taps: np.ndarray,
     r_levels = polyexp_pyramid(_estimation_stack(padded, flow_cfg), flow_cfg)
     lo = [r[:-1] for r in r_levels]
     hi = [r[1:] for r in r_levels]
-    adj_fwd = flow_from_pyramids(lo, hi, adj_cfg, None)
+    # the adjacent flows in the pass dtype; the kernel's sources in bf16
+    # for the packed form, else float32
+    src = (torch.bfloat16 if flow_cfg.precision == "bfloat16" and d is not None
+           else torch.float32)
+    adj_fwd = flow_from_pyramids(lo, hi, adj_cfg, None).to(dtype).to(src)
     if flow_cfg.symmetric_adjacent:
         adj_bwd = -adj_fwd
     else:
-        adj_bwd = flow_from_pyramids(hi, lo, adj_cfg, None)
+        adj_bwd = flow_from_pyramids(hi, lo, adj_cfg, None).to(dtype).to(src)
     del r_levels, lo, hi
 
-    acc = padded[ks2:ks2 + n] * float(np.float32(taps[ks2]))
-    flow = torch.zeros((n, 2) + tuple(padded.shape[1:]), dtype=padded.dtype,
+    nb = padded.to(src)
+    acc = (padded[ks2:ks2 + n] * rounded(taps[ks2], dtype)).float()
+    flow = torch.zeros((n, 2) + tuple(padded.shape[1:]), dtype=torch.float32,
                        device=padded.device)
     # backward run: the link of distance j is adj_bwd[start]; forward run:
     # adj_fwd[start - 1] (start = ks2 + offset, the neighbour's index)
@@ -156,6 +182,7 @@ def _of_pass_composed(padded: torch.Tensor, taps: np.ndarray,
         flow.zero_()
         for j in range(1, ks2 + 1):
             start = ks2 + sign * j
-            compose_tap(adj, flow, padded, acc, taps[ks2 + sign * j], d,
-                        start + shift, start)
+            compose_tap(adj, flow, nb, acc, rounded(taps[ks2 + sign * j], dtype),
+                        d, start + shift, start,
+                        round_carry=dtype != torch.float32)
     return acc

@@ -106,8 +106,10 @@ def denoise(vol, cfg: FilterConfig = FilterConfig(), kernels=None,
 
     ``vol`` is a (Z, Y, X) tensor, which is filtered on its own device, or
     an array, which is taken to ``device`` (default CUDA; raises without a
-    CUDA device unless ``device="cpu"``).  The result is float32 on the
-    device the work ran on.  ``on_pass(i, volume)`` is called after pass i.
+    CUDA device unless ``device="cpu"``).  Each pass runs in
+    ``cfg.flow.dtype`` (the bf16 fast mode: ``dtype`` and ``precision``
+    bfloat16) and returns float32, so the volume is float32 between passes
+    and the result is float32 on the device the work ran on.  ``on_pass(i, volume)`` is called after pass i.
     (Resuming at a later pass, the JAX package's ``start_pass``/
     ``mean_val``, comes with checkpoints: ROADMAP A10.)
     """

@@ -37,8 +37,22 @@
 // them, and they must not overlap link or nb.
 // Built with -fmad=false so the arithmetic rounds as the plain version's
 // separate multiplies and adds do.
+//
+// The bf16 fast mode adds two things, as the JAX package's prepped compose
+// pass does (flowdenoising_tpu/ops/pallas/compose.py: prep_compose_src,
+// compose_tap_prepped):
+// - the packed form (K-compose-bf16, --precision bfloat16): link and nb
+//   read as bfloat16 (T = __nv_bfloat16, bf16.cuh) and interpolated in
+//   float32, 30 B per pixel of compulsory traffic instead of 36;
+// - `round_carry` (--dtype bfloat16, in either form): the flow and acc
+//   stores go through bfloat16, as the pass carries them between taps
+//   (compose.py:569-574).  The neighbour is still sampled at the unrounded
+//   float32 (u', v'); flow and acc stay float32 tensors that hold
+//   bf16-exact values.
 
 #include <cuda_runtime.h>
+
+#include "bf16.cuh"
 
 namespace {
 
@@ -76,24 +90,26 @@ __device__ __forceinline__ Tap footprint(int x, int y, float du, float dv,
   return t;
 }
 
-__device__ __forceinline__ float bilinear(const float* __restrict__ p,
+template <typename T>
+__device__ __forceinline__ float bilinear(const T* __restrict__ p,
                                           const Tap& t) {
-  const float v00 = __ldg(p + t.ra + t.xa);
-  const float v01 = __ldg(p + t.ra + t.xb);
-  const float v10 = __ldg(p + t.rb + t.xa);
-  const float v11 = __ldg(p + t.rb + t.xb);
+  const float v00 = load_f32(p + t.ra + t.xa);
+  const float v01 = load_f32(p + t.ra + t.xb);
+  const float v10 = load_f32(p + t.rb + t.xa);
+  const float v11 = load_f32(p + t.rb + t.xb);
   const float top = v00 + (v01 - v00) * t.tx;
   const float bot = v10 + (v11 - v10) * t.tx;
   return top + (bot - top) * t.ty;
 }
 
-__global__ void compose_kernel(const float* __restrict__ link,
-                               const float* __restrict__ nb,
+template <typename T>
+__global__ void compose_kernel(const T* __restrict__ link,
+                               const T* __restrict__ nb,
                                float* __restrict__ flow,
                                float* __restrict__ acc,
                                int H, int W, int link_start, int nb_start,
                                float weight, float d, int clamp,
-                               long long total) {
+                               int round_carry, long long total) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= total) return;
   const long long hw = (long long)H * W;
@@ -106,16 +122,32 @@ __global__ void compose_kernel(const float* __restrict__ link,
   const float u = U[p];
   const float v = U[hw + p];
 
-  const float* L = link + (link_start + b) * 2 * hw;
+  const T* L = link + (link_start + b) * 2 * hw;
   const Tap t1 = footprint(x, y, u, v, H, W, d, clamp);
   const float u2 = u + bilinear(L, t1);
   const float v2 = v + bilinear(L + hw, t1);
-  U[p] = u2;
-  U[hw + p] = v2;
+  U[p] = round_carry ? round_bf16(u2) : u2;
+  U[hw + p] = round_carry ? round_bf16(v2) : v2;
 
   const Tap t2 = footprint(x, y, u2, v2, H, W, d, clamp);
   const float s = bilinear(nb + (nb_start + b) * hw, t2);
-  acc[i] = acc[i] + s * weight;
+  const float a = acc[i] + s * weight;
+  acc[i] = round_carry ? round_bf16(a) : a;
+}
+
+template <typename T>
+int launch_compose(const T* link, const T* nb, float* flow, float* acc,
+                   int B, int H, int W, int link_start, int nb_start,
+                   float weight, float d, int clamp, int round_carry,
+                   void* stream) {
+  const long long total = (long long)B * H * W;
+  if (total == 0) return (int)cudaSuccess;
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  compose_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      link, nb, flow, acc, H, W, link_start, nb_start, weight, d, clamp,
+      round_carry, total);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -123,18 +155,25 @@ __global__ void compose_kernel(const float* __restrict__ link,
 // One compose tap for B output planes of H x W.  link: (B_link, 2, H, W),
 // read at planes link_start .. link_start + B - 1; nb: (B_nb, H, W), read
 // at nb_start .. nb_start + B - 1; flow: (B, 2, H, W) and acc: (B, H, W),
-// updated in place.  All contiguous float32; the caller checks the offset
-// ranges.  Launches on `stream`; returns cudaGetLastError().
+// updated in place, their stores rounded to bfloat16 when round_carry is
+// set.  All contiguous float32; the caller checks the offset ranges.
+// Launches on `stream`; returns cudaGetLastError().
 extern "C" int fdt_compose_step(const float* link, const float* nb,
                                 float* flow, float* acc, int B, int H, int W,
                                 int link_start, int nb_start, float weight,
-                                float d, int clamp, void* stream) {
-  const long long total = (long long)B * H * W;
-  if (total == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  compose_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      link, nb, flow, acc, H, W, link_start, nb_start, weight, d, clamp,
-      total);
-  return (int)cudaGetLastError();
+                                float d, int clamp, int round_carry,
+                                void* stream) {
+  return launch_compose(link, nb, flow, acc, B, H, W, link_start, nb_start,
+                        weight, d, clamp, round_carry, stream);
+}
+
+// The packed form: fdt_compose_step with link and nb contiguous bfloat16.
+extern "C" int fdt_compose_step_bf16(const __nv_bfloat16* link,
+                                     const __nv_bfloat16* nb, float* flow,
+                                     float* acc, int B, int H, int W,
+                                     int link_start, int nb_start,
+                                     float weight, float d, int clamp,
+                                     int round_carry, void* stream) {
+  return launch_compose(link, nb, flow, acc, B, H, W, link_start, nb_start,
+                        weight, d, clamp, round_carry, stream);
 }

@@ -5,10 +5,16 @@
 // versions are flowdenoising_tpu_torch/ops/farneback.py:
 // update_matrices_plain and update_flow_plain.  The arithmetic is written in
 // the plain versions' order, for a build with -fmad=false.
+//
+// Phase 1 is a template on the element type of r1: float32, or bfloat16 in
+// the packed forms of K-umuf and K-um (--precision bfloat16), which widen
+// each r1 texel exactly (bf16.cuh) and compute in float32 from there.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "bf16.cuh"
 
 namespace {
 
@@ -47,13 +53,17 @@ __device__ __forceinline__ double edge_weight(int i, int n) {
 // clamped to +-d (no clamp when `clamp` is 0), replicate borders; mask
 // out-of-plane samples using the UNCLAMPED flow; average the quadratic
 // terms with r0; add r4*dy + r6*dx and r6*dy + r5*dx with the unclamped
-// flow; scale by the 5-px border ramp at plane coordinates.  (dx, dy) is
-// the flow at (x, y): M depends on the flow at its own pixel only.
+// flow; scale by the 5-px border ramp at plane coordinates, rounded to
+// bfloat16 when `ramp_bf16` is set (the JAX package's split iteration on a
+// bf16 pass's tiny levels holds the ramp map in the pass dtype).  (dx, dy)
+// is the flow at (x, y): M depends on the flow at its own pixel only.
+template <typename T1>
 __device__ __forceinline__ void matrices_from(const float* __restrict__ R0,
-                                              const float* __restrict__ R1,
+                                              const T1* __restrict__ R1,
                                               float dx, float dy, int x, int y,
                                               int H, int W, long long hw,
-                                              float d, int clamp, float m[5]) {
+                                              float d, int clamp, int ramp_bf16,
+                                              float m[5]) {
   const long long p = (long long)y * W + x;
   const float fx1 = floorf((float)x + dx);
   const float fy1 = floorf((float)y + dy);
@@ -85,11 +95,11 @@ __device__ __forceinline__ void matrices_from(const float* __restrict__ R0,
   float s[5];
 #pragma unroll
   for (int c = 0; c < 5; ++c) {
-    const float* q = R1 + c * hw;
-    const float v00 = __ldg(q + ra + xa);
-    const float v01 = __ldg(q + ra + xb);
-    const float v10 = __ldg(q + rb + xa);
-    const float v11 = __ldg(q + rb + xb);
+    const T1* q = R1 + c * hw;
+    const float v00 = load_f32(q + ra + xa);
+    const float v01 = load_f32(q + ra + xb);
+    const float v10 = load_f32(q + rb + xa);
+    const float v11 = load_f32(q + rb + xb);
     const float top = v00 + (v01 - v00) * tx;
     const float bot = v10 + (v11 - v10) * tx;
     s[c] = top + (bot - top) * ty;
@@ -105,7 +115,8 @@ __device__ __forceinline__ void matrices_from(const float* __restrict__ R0,
   r2 = r2 + r4 * dy + r6 * dx;
   r3 = r3 + r6 * dy + r5 * dx;
 
-  const float sc = (float)(edge_weight(y, H) * edge_weight(x, W));
+  float sc = (float)(edge_weight(y, H) * edge_weight(x, W));
+  if (ramp_bf16) sc = round_bf16(sc);
   r2 = r2 * sc;
   r3 = r3 * sc;
   r4 = r4 * sc;
@@ -120,15 +131,16 @@ __device__ __forceinline__ void matrices_from(const float* __restrict__ R0,
 }
 
 // Phase 1 at plane pixel (x, y) with the flow read from the planes U, V.
+template <typename T1>
 __device__ __forceinline__ void matrices_at(const float* __restrict__ R0,
-                                            const float* __restrict__ R1,
+                                            const T1* __restrict__ R1,
                                             const float* __restrict__ U,
                                             const float* __restrict__ V,
                                             int x, int y, int H, int W,
                                             long long hw, float d, int clamp,
-                                            float m[5]) {
+                                            int ramp_bf16, float m[5]) {
   const long long p = (long long)y * W + x;
-  matrices_from(R0, R1, U[p], V[p], x, y, H, W, hw, d, clamp, m);
+  matrices_from(R0, R1, U[p], V[p], x, y, H, W, hw, d, clamp, ramp_bf16, m);
 }
 
 // Calls f(i, j) for every cell of a rows x cols rectangle, the cells

@@ -27,13 +27,19 @@
 // skipping and bf16 pairs answer the TPU's missing per-lane gather and are
 // not carried over.  Built with -fmad=false so the arithmetic rounds as the
 // plain version's separate multiplies and adds do.
+//
+// The packed form (K-um-bf16, the TPU kernel's `packed` r1,
+// update_matrices.py:114) reads r1 as bfloat16 (T1 = __nv_bfloat16,
+// bf16.cuh): 58 B per pixel instead of 68.  The -v 2 reconstruction runs it
+// when the precision is bfloat16, as the JAX package's stage report does.
 
 #include "farneback.cuh"
 
 namespace {
 
+template <typename T1>
 __global__ void um_kernel(const float* __restrict__ r0,
-                          const float* __restrict__ r1,
+                          const T1* __restrict__ r1,
                           const float* __restrict__ flow,
                           float* __restrict__ m_out,
                           int H, int W, float d, int clamp) {
@@ -45,10 +51,21 @@ __global__ void um_kernel(const float* __restrict__ r0,
   const float* U = flow + b * 2 * hw;
   float m[5];
   matrices_at(r0 + b * 5 * hw, r1 + b * 5 * hw, U, U + hw, x, y, H, W, hw,
-              d, clamp, m);
+              d, clamp, 0, m);
   float* M = m_out + b * 5 * hw + (long long)y * W + x;
 #pragma unroll
   for (int c = 0; c < 5; ++c) M[c * hw] = m[c];
+}
+
+template <typename T1>
+int launch_um(const float* r0, const T1* r1, const float* flow, float* m,
+              int B, int H, int W, float d, int clamp, void* stream) {
+  if (B == 0 || H == 0 || W == 0) return (int)cudaSuccess;
+  const dim3 grid((W + BLOCK_X - 1) / BLOCK_X, (H + BLOCK_Y - 1) / BLOCK_Y, B);
+  const dim3 block(BLOCK_X, BLOCK_Y);
+  um_kernel<T1><<<grid, block, 0, (cudaStream_t)stream>>>(r0, r1, flow, m, H,
+                                                           W, d, clamp);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -58,10 +75,14 @@ __global__ void um_kernel(const float* __restrict__ r0,
 extern "C" int fdt_update_matrices(const float* r0, const float* r1,
                                    const float* flow, float* m, int B, int H,
                                    int W, float d, int clamp, void* stream) {
-  if (B == 0 || H == 0 || W == 0) return (int)cudaSuccess;
-  const dim3 grid((W + BLOCK_X - 1) / BLOCK_X, (H + BLOCK_Y - 1) / BLOCK_Y, B);
-  const dim3 block(BLOCK_X, BLOCK_Y);
-  um_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(r0, r1, flow, m, H, W,
-                                                       d, clamp);
-  return (int)cudaGetLastError();
+  return launch_um(r0, r1, flow, m, B, H, W, d, clamp, stream);
+}
+
+// The packed form: fdt_update_matrices with r1 contiguous bfloat16.
+extern "C" int fdt_update_matrices_bf16(const float* r0,
+                                        const __nv_bfloat16* r1,
+                                        const float* flow, float* m, int B,
+                                        int H, int W, float d, int clamp,
+                                        void* stream) {
+  return launch_um(r0, r1, flow, m, B, H, W, d, clamp, stream);
 }

@@ -65,6 +65,13 @@
 //   0/1 band (the TPU kernel's MXU box matmul), and TF32 would round M to a
 //   10-bit mantissa, which breaks the bit equality and can miss the JAX
 //   package's tolerance.
+// - The packed form (K-umuf-bf16, --precision bfloat16: the TPU kernel's
+//   `packed` r1, umuf.py:262-263) is this kernel with r1 read as bfloat16
+//   (T1 = __nv_bfloat16, bf16.cuh): r1's 10 B per pixel instead of 20, so
+//   the function's bytes fall from 56 to 46 B per pixel; r1 is never in
+//   shared memory, so the plan does not change.  `ramp_bf16` rounds the
+//   border ramp to bfloat16, as a bf16 pass's tiny levels hold it in the
+//   JAX package (farneback.py: update_matrices, `scale` in r0.dtype).
 // Built with -fmad=false so the arithmetic rounds as the plain version's
 // separate multiplies and adds do.
 
@@ -80,11 +87,12 @@ __host__ __device__ inline size_t umuf_smem_bytes(int rh, int sw, int r,
                           (k > 1 ? (size_t)2 * rh * sw : 0));
 }
 
+template <typename T1>
 __global__ void __launch_bounds__(512, 2)
-umuf_kernel(const float* __restrict__ r0, const float* __restrict__ r1,
+umuf_kernel(const float* __restrict__ r0, const T1* __restrict__ r1,
             const float* __restrict__ flow_in, float* __restrict__ flow_out,
-            int H, int W, float d, int clamp, int r, float inv_ws2, int k,
-            int TY, int TX, int rh, int sw) {
+            int H, int W, float d, int clamp, int ramp_bf16, int r,
+            float inv_ws2, int k, int TY, int TX, int rh, int sw) {
   extern __shared__ float smem[];
   const int mplane = (rh + r) * sw;
   float* m_s = smem;              // M at array row y - ry0 + r, column x - rx0
@@ -93,7 +101,7 @@ umuf_kernel(const float* __restrict__ r0, const float* __restrict__ r1,
   const long long hw = (long long)H * W;
   const long long b = blockIdx.z;
   const float* R0 = r0 + b * 5 * hw;
-  const float* R1 = r1 + b * 5 * hw;
+  const T1* R1 = r1 + b * 5 * hw;
   const float* U = flow_in + b * 2 * hw;
   const float* V = U + hw;
   float* Uo = flow_out + b * 2 * hw;
@@ -122,7 +130,7 @@ umuf_kernel(const float* __restrict__ r0, const float* __restrict__ r1,
         dy = fv[q];
       }
       float m[5];
-      matrices_from(R0, R1, dx, dy, x, y, H, W, hw, d, clamp, m);
+      matrices_from(R0, R1, dx, dy, x, y, H, W, hw, d, clamp, ramp_bf16, m);
       const int a = (y - ry0 + r) * sw + (x - rx0);
 #pragma unroll
       for (int c = 0; c < 5; ++c) m_s[c * mplane + a] = m[c];
@@ -147,6 +155,29 @@ umuf_kernel(const float* __restrict__ r0, const float* __restrict__ r1,
   }
 }
 
+// The launch of fdt_umuf and fdt_umuf_bf16.
+template <typename T1>
+int launch_umuf(const float* r0, const T1* r1, const float* flow_in,
+                float* flow_out, int B, int H, int W, float d, int clamp,
+                int ramp_bf16, int winsize, float inv_ws2, int k, int TY,
+                int TX, int threads, void* stream) {
+  if (B == 0 || H == 0 || W == 0 || k == 0) return (int)cudaSuccess;
+  if (k < 0 || TY < 1 || TX < 1 || threads < 32 || threads > 512)
+    return (int)cudaErrorInvalidValue;
+  const int r = winsize / 2;
+  const int rh = min(TY + 2 * k * r, H);
+  const int sw = min(TX + 2 * k * r, W);
+  const size_t smem = umuf_smem_bytes(rh, sw, r, k);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem(umuf_kernel<T1>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
+  umuf_kernel<T1><<<grid, threads, smem, (cudaStream_t)stream>>>(
+      r0, r1, flow_in, flow_out, H, W, d, clamp, ramp_bf16, r, inv_ws2, k, TY,
+      TX, rh, sw);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Shared memory one block of fdt_umuf takes: the planner's formula, for
@@ -160,27 +191,26 @@ extern "C" long long fdt_umuf_smem(int H, int W, int winsize, int k, int TY,
 
 // k chained iterations in one launch.  r0, r1: (B, 5, H, W); flow_in,
 // flow_out: (B, 2, H, W); all contiguous float32, flow_out distinct from
-// flow_in.  inv_ws2 is 1/winsize^2 rounded to float32.  TY x TX is the
-// output tile of a block of `threads` threads (at most 512).  Launches on
-// `stream`; returns cudaGetLastError(), or cudaErrorInvalidValue for a
-// block that does not fit the card.
+// flow_in.  inv_ws2 is 1/winsize^2 rounded to float32; ramp_bf16 rounds the
+// border ramp to bfloat16.  TY x TX is the output tile of a block of
+// `threads` threads (at most 512).  Launches on `stream`; returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a block that does not
+// fit the card.
 extern "C" int fdt_umuf(const float* r0, const float* r1,
                         const float* flow_in, float* flow_out, int B, int H,
-                        int W, float d, int clamp, int winsize, float inv_ws2,
-                        int k, int TY, int TX, int threads, void* stream) {
-  if (B == 0 || H == 0 || W == 0 || k == 0) return (int)cudaSuccess;
-  if (k < 0 || TY < 1 || TX < 1 || threads < 32 || threads > 512)
-    return (int)cudaErrorInvalidValue;
-  const int r = winsize / 2;
-  const int rh = min(TY + 2 * k * r, H);
-  const int sw = min(TX + 2 * k * r, W);
-  const size_t smem = umuf_smem_bytes(rh, sw, r, k);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem(umuf_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
-  umuf_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      r0, r1, flow_in, flow_out, H, W, d, clamp, r, inv_ws2, k, TY, TX, rh,
-      sw);
-  return (int)cudaGetLastError();
+                        int W, float d, int clamp, int ramp_bf16, int winsize,
+                        float inv_ws2, int k, int TY, int TX, int threads,
+                        void* stream) {
+  return launch_umuf(r0, r1, flow_in, flow_out, B, H, W, d, clamp, ramp_bf16,
+                     winsize, inv_ws2, k, TY, TX, threads, stream);
+}
+
+// The packed form: fdt_umuf with r1 contiguous bfloat16.
+extern "C" int fdt_umuf_bf16(const float* r0, const __nv_bfloat16* r1,
+                             const float* flow_in, float* flow_out, int B,
+                             int H, int W, float d, int clamp, int ramp_bf16,
+                             int winsize, float inv_ws2, int k, int TY, int TX,
+                             int threads, void* stream) {
+  return launch_umuf(r0, r1, flow_in, flow_out, B, H, W, d, clamp, ramp_bf16,
+                     winsize, inv_ws2, k, TY, TX, threads, stream);
 }

@@ -3,7 +3,10 @@
 Counterpart of ``flowdenoising_tpu/ops/blur.py``: the pre-pyramid
 GaussianBlur and the winsize box aggregation of OpenCV's Farneback.  Each
 1-D correlation is a shift-and-add over one padded tensor (no convolution
-library call, so no TF32 question arises).
+library call, so no TF32 question arises), in the input's dtype: on a
+bfloat16 input (a ``--dtype bfloat16`` pass) the taps are rounded to
+bfloat16 and every product and sum rounds to bfloat16, as the JAX
+package's correlation does.
 """
 
 from __future__ import annotations
@@ -47,6 +50,15 @@ def smooth_kernel_for_level(level: int, pyr_scale: float = 0.5) -> np.ndarray:
     return opencv_gaussian_taps(ksize, sigma)
 
 
+@functools.lru_cache(maxsize=None)
+def rounded(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype`` (to nearest even), as a Python float: the
+    constant that ``jnp.asarray(x, dtype)`` and JAX's weak typing give an
+    array of that dtype.  Multiplying a tensor of ``dtype`` by it rounds as
+    the JAX package's product of two ``dtype`` values."""
+    return float(torch.tensor(float(x), dtype=torch.float64).to(dtype))
+
+
 def corr1d(img: torch.Tensor, taps, axis: int, pad_mode: str) -> torch.Tensor:
     """1-D correlation along ``axis`` as a shift-and-add over a padded copy.
 
@@ -62,7 +74,7 @@ def corr1d(img: torch.Tensor, taps, axis: int, pad_mode: str) -> torch.Tensor:
     p = img.index_select(axis, torch.as_tensor(idx, device=img.device))
     out = None
     for k in range(len(taps)):
-        term = p.narrow(axis, k, n) * float(np.float32(taps[k]))
+        term = p.narrow(axis, k, n) * rounded(taps[k], img.dtype)
         out = term if out is None else out.add_(term)
     return out
 

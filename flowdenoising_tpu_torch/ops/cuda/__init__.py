@@ -4,14 +4,17 @@ Each kernel's wrapper (``sample.displace_sample``, ``umuf.umuf_iterate``,
 ``compose.compose_tap``, ``um.update_matrices``, ``uf.update_flow``) runs
 the kernel for a CUDA tensor and the plain PyTorch version for a CPU
 tensor, and raises for any other device.  ``LAUNCHES`` counts the kernel
-launches of each wrapper: a run resets it and reads it afterwards to show
+launches of each wrapper, per form: ``umuf_bf16``, ``compose_bf16`` and
+``um_bf16`` count the packed forms (the sampling source in bfloat16,
+``--precision bfloat16``).  A run resets it and reads it afterwards to show
 which kernels its path went through.
 """
 
 from __future__ import annotations
 
-# kernel name -> number of launches since the last reset_launches()
-LAUNCHES = {"compose": 0, "sample": 0, "uf": 0, "um": 0, "umuf": 0}
+# kernel form -> number of launches since the last reset_launches()
+LAUNCHES = {"compose": 0, "compose_bf16": 0, "sample": 0, "uf": 0, "um": 0,
+            "um_bf16": 0, "umuf": 0, "umuf_bf16": 0}
 
 
 def reset_launches() -> None:

@@ -32,18 +32,25 @@ COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xptxas",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signature of every exported function: (argtypes, restype).
+_COMPOSE = ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P], _I)
+_UMUF = ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+         _I)
+_UM = ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _P], _I)
+# C signature of every exported function: (argtypes, restype).  A *_bf16
+# entry is its kernel's packed form: the same arguments, the sampling source
+# bfloat16.
 SIGNATURES = {
-    "fdt_compose_step": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P],
-                         _I),
+    "fdt_compose_step": _COMPOSE,
+    "fdt_compose_step_bf16": _COMPOSE,
     "fdt_sample": ([_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _F, _I,
                     _P], _I),
-    "fdt_umuf": ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _I, _I, _I, _I,
-                  _P], _I),
+    "fdt_umuf": _UMUF,
+    "fdt_umuf_bf16": _UMUF,
     "fdt_umuf_smem": ([_I, _I, _I, _I, _I, _I], ctypes.c_longlong),
     "fdt_update_flow": ([_P, _P, _I, _I, _I, _I, _F, _P], _I),
     "fdt_update_flow_smem": ([_I], ctypes.c_longlong),
-    "fdt_update_matrices": ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _P], _I),
+    "fdt_update_matrices": _UM,
+    "fdt_update_matrices_bf16": _UM,
 }
 
 

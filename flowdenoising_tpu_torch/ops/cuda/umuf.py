@@ -1,6 +1,7 @@
 """K-umuf wrapper: chained fused Farneback iterations at one pyramid level
 (port of the Pallas kernel ``flowdenoising_tpu/ops/pallas/umuf.py:
-_umuf_kernel``; CUDA source ``flowdenoising_tpu_torch/csrc/umuf.cu``).
+_umuf_kernel``, with its packed form; CUDA source
+``flowdenoising_tpu_torch/csrc/umuf.cu``).
 
 ``plan_umuf`` is the launch planner: plain Python, no CUDA, so the CPU
 tests hold its choices to the shared-memory limits.
@@ -108,13 +109,17 @@ def plan_umuf(h: int, w: int, winsize: int, iters: int,
 
 def umuf_iterate(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
                  iters: int, d: int | None, winsize: int,
-                 per_launch: int | None = None) -> torch.Tensor:
+                 per_launch: int | None = None,
+                 ramp_bf16: bool = False) -> torch.Tensor:
     """``iters`` Farneback iterations ``flow <- update_flow(update_matrices(
     r0, r1, flow, d), winsize)``.
 
     r0, r1: (B, 5, H, W) polynomial expansions of target and reference;
-    flow: (B, 2, H, W), channel 0 = x.  ``d`` bounds the sampling
-    displacement (None: no clamp).  Returns a new (B, 2, H, W) flow.
+    flow: (B, 2, H, W), channel 0 = x.  r0 and flow are float32; r1 is
+    float32, or bfloat16 for the packed form (K-umuf-bf16, ``--precision
+    bfloat16``), which samples it in float32.  ``d`` bounds the sampling
+    displacement (None: no clamp).  ``ramp_bf16`` rounds the border ramp to
+    bfloat16 (a bf16 pass's tiny levels).  Returns a new (B, 2, H, W) flow.
 
     A CPU tensor takes the plain version (``ops.farneback.
     umuf_iterate_plain``); a CUDA tensor runs the kernel as ``plan_umuf``
@@ -131,18 +136,21 @@ def umuf_iterate(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
     if r0.device.type == "cpu":
         # imported here: ops.farneback imports this module
         from flowdenoising_tpu_torch.ops.farneback import umuf_iterate_plain
-        return umuf_iterate_plain(r0, r1, flow, iters, d, winsize)
+        return umuf_iterate_plain(r0, r1, flow, iters, d, winsize, ramp_bf16)
     if r0.device.type != "cuda":
         raise ValueError(f"umuf_iterate: no kernel for device {r0.device}")
-    for name, t in (("r0", r0), ("r1", r1), ("flow", flow)):
-        if (t.dtype != torch.float32 or t.device != r0.device
+    for name, t, dtypes in (("r0", r0, (torch.float32,)),
+                            ("r1", r1, (torch.float32, torch.bfloat16)),
+                            ("flow", flow, (torch.float32,))):
+        if (t.dtype not in dtypes or t.device != r0.device
                 or not t.is_contiguous()):
             raise ValueError(f"umuf_iterate: {name} must be contiguous "
-                             f"float32 on {r0.device}")
+                             f"{' or '.join(map(str, dtypes))} on {r0.device}")
     if b > 65535:
         raise ValueError(f"umuf_iterate: batch {b} exceeds the grid's 65535")
     plan = plan_umuf(h, w, winsize, iters, per_launch)
-    lib = load_library()
+    form = "umuf_bf16" if r1.dtype == torch.bfloat16 else "umuf"
+    launch = getattr(load_library(), "fdt_" + form)
     stream = torch.cuda.current_stream(r0.device).cuda_stream
     clamp = int(d is not None)
     dval = 0.0 if d is None else float(d)
@@ -151,11 +159,11 @@ def umuf_iterate(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
     cur = flow
     for i, k in enumerate(plan.launches):
         nxt = bufs[i % 2]
-        rc = lib.fdt_umuf(
+        rc = launch(
             r0.data_ptr(), r1.data_ptr(), cur.data_ptr(), nxt.data_ptr(),
-            b, h, w, dval, clamp, winsize, inv_ws2, k, plan.tile_y,
-            plan.tile_x, plan.threads, stream)
-        check(rc, "fdt_umuf")
-        LAUNCHES["umuf"] += 1
+            b, h, w, dval, clamp, int(ramp_bf16), winsize, inv_ws2, k,
+            plan.tile_y, plan.tile_x, plan.threads, stream)
+        check(rc, "fdt_" + form)
+        LAUNCHES[form] += 1
         cur = nxt
     return cur

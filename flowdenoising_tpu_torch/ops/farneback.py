@@ -23,6 +23,16 @@ Layout: channel-first with the batch leading -- expansions (B, 5, H, W),
 flows (B, 2, H, W) with channel 0 = x -- so one slice range of a stack's
 pyramid is a contiguous view.  ``farneback_flow`` keeps the JAX package's
 channels-last (..., H, W, 2) flow at its interface.
+
+The bf16 fast mode, as the JAX package runs it on the TPU:
+
+- ``--dtype bfloat16``: the pyramid is built in bfloat16 arithmetic (taps,
+  resize weights and the expansion's constants rounded to bfloat16); the
+  kernels read float32 copies of its values, and the flows stay float32.
+- ``--precision bfloat16``: the levels where the JAX package runs its
+  Pallas kernel (a finite bound, not the tiny route of ``_tiny_level``)
+  sample r1 rounded to bfloat16, through the packed form K-umuf-bf16
+  (``_packed_at_level``).
 """
 
 from __future__ import annotations
@@ -34,7 +44,7 @@ import torch
 
 from flowdenoising_tpu_torch.config import FlowConfig
 from flowdenoising_tpu_torch.ops.blur import (
-    _sep_correlate, box_blur_sum, corr1d, smooth_kernel_for_level)
+    _sep_correlate, box_blur_sum, corr1d, rounded, smooth_kernel_for_level)
 from flowdenoising_tpu_torch.ops.cuda.uf import update_flow
 from flowdenoising_tpu_torch.ops.cuda.um import update_matrices
 from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
@@ -88,9 +98,12 @@ def poly_expand(img: torch.Tensor, n: int = 5, sigma: float = 1.2) -> torch.Tens
     """Quadratic polynomial expansion of (..., H, W) -> (..., 5, H, W).
 
     Channels: [b_y, b_x, a_yy, a_xx, a_xy] in OpenCV's internal scaling.
-    Border handling: replicate, both axes.
+    Border handling: replicate, both axes.  Computed in img's dtype, the
+    inverse-Gram constants rounded to it (as JAX's weak typing rounds
+    them).
     """
-    g, xg, xxg, ig11, ig03, ig33, ig55 = poly_exp_constants(n, float(sigma))
+    g, xg, xxg, *igs = poly_exp_constants(n, float(sigma))
+    ig11, ig03, ig33, ig55 = (rounded(c, img.dtype) for c in igs)
 
     row0 = corr1d(img, g, -2, "edge")
     row1 = corr1d(img, xg, -2, "edge")
@@ -131,14 +144,17 @@ def _border_scale_map(h: int, w: int) -> np.ndarray:
 
 def update_matrices_plain(r0: torch.Tensor, r1: torch.Tensor,
                           flow: torch.Tensor,
-                          max_displacement: int | None = None) -> torch.Tensor:
+                          max_displacement: int | None = None,
+                          ramp_bf16: bool = False) -> torch.Tensor:
     """Per-pixel normal-equation entries M = [G11, G12, G22, h1, h2]
     (plain version of K-um, phase 1 of K-umuf).
 
     r0, r1: (..., 5, H, W) expansions of target and reference; flow:
     (..., 2, H, W).  r1 is sampled at the flow clamped to
     +-max_displacement (None: unclamped); the in-plane mask and the flow
-    terms use the unclamped flow.  Returns (..., 5, H, W).
+    terms use the unclamped flow.  A bfloat16 r1 (the packed forms) is
+    sampled in float32.  ``ramp_bf16`` rounds the border ramp to bfloat16.
+    Returns (..., 5, H, W).
     """
     h, w = r0.shape[-2], r0.shape[-1]
     dx = flow[..., 0, :, :]
@@ -162,6 +178,8 @@ def update_matrices_plain(r0: torch.Tensor, r1: torch.Tensor,
 
     scale = torch.as_tensor(_border_scale_map(h, w), dtype=r0.dtype,
                             device=r0.device)
+    if ramp_bf16:
+        scale = scale.to(torch.bfloat16).to(r0.dtype)
     r2 = r2 * scale
     r3 = r3 * scale
     r4 = r4 * scale
@@ -193,11 +211,13 @@ def update_flow_plain(m: torch.Tensor, winsize: int) -> torch.Tensor:
 
 
 def umuf_iterate_plain(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
-                       iters: int, d: int | None, winsize: int) -> torch.Tensor:
-    """Plain version of K-umuf: ``iters`` chained Farneback iterations."""
+                       iters: int, d: int | None, winsize: int,
+                       ramp_bf16: bool = False) -> torch.Tensor:
+    """Plain version of K-umuf and its packed form (a bfloat16 r1):
+    ``iters`` chained Farneback iterations."""
     for _ in range(iters):
-        flow = update_flow_plain(update_matrices_plain(r0, r1, flow, d),
-                                 winsize)
+        flow = update_flow_plain(
+            update_matrices_plain(r0, r1, flow, d, ramp_bf16), winsize)
     return flow
 
 
@@ -209,6 +229,73 @@ def _level_displacement(cfg: FlowConfig, level: int) -> int | None:
         return None
     d = int(np.ceil(cfg.max_displacement * (cfg.pyr_scale ** level))) + 1
     return max(2, d)
+
+
+# The JAX package's tiny route (farneback.py: _XLA_LEVEL_AREA,
+# _XLA_LEVEL_MAX_D): a level of at most this area whose bound is at most
+# this runs the split XLA iteration, not a Pallas kernel.
+_TINY_AREA = 2048
+_TINY_MAX_D = 4
+
+
+def _tiny_level(d: int | None, hk: int, wk: int) -> bool:
+    """Whether an hk x wk level at bound d takes the JAX package's tiny
+    route.  The port runs K-umuf there too (the same function); the route
+    decides only where r1 is packed and, in a bf16 pass, the rounding of
+    the border ramp (the split iteration holds it in the pass dtype)."""
+    return d is not None and d <= _TINY_MAX_D and hk * wk <= _TINY_AREA
+
+
+def _packed_at_level(cfg: FlowConfig, k: int, hk: int, wk: int) -> bool:
+    """Whether level k (hk x wk) samples r1 in bfloat16: with ``precision``
+    bfloat16, wherever the JAX package runs its Pallas kernel packed -- a
+    finite bound and not the tiny route (so never with no bound, and never
+    in the auto-bound probe, which solves unbounded in float32)."""
+    d = _level_displacement(cfg, k)
+    return (cfg.precision == "bfloat16" and d is not None
+            and not _tiny_level(d, hk, wk))
+
+
+def _level_operands(cfg: FlowConfig, k: int, r0: torch.Tensor,
+                    r1: torch.Tensor):
+    """K-umuf's operands at level k from pyramid levels of either dtype:
+    (r0 in float32, r1 in bfloat16 where packed else float32, whether the
+    border ramp is rounded to bfloat16).  A float32 operand of a float32
+    level is the level itself, not a copy."""
+    hk, wk = r0.shape[-2], r0.shape[-1]
+    d = _level_displacement(cfg, k)
+    packed = _packed_at_level(cfg, k, hk, wk)
+    ramp_bf16 = r0.dtype == torch.bfloat16 and _tiny_level(d, hk, wk)
+    return (r0.float(), r1.to(torch.bfloat16) if packed else r1.float(),
+            ramp_bf16)
+
+
+def _solve_levels(levels, cfg: FlowConfig, initial_flow: torch.Tensor | None,
+                  round_level_flow: bool) -> torch.Tensor:
+    """Coarse to fine over ``levels`` [(r0, r1, ramp_bf16) of
+    ``_level_operands``]; the flow is float32 throughout.  With
+    ``round_level_flow`` each Pallas level's input flow is rounded to
+    bfloat16 (the JAX package's ``flow.astype(r0.dtype)`` in
+    ``_iterate_level`` on a bf16 pyramid)."""
+    flow = None
+    for k in range(len(levels) - 1, -1, -1):
+        r0, r1, ramp_bf16 = levels[k]
+        hk, wk = r0.shape[-2], r0.shape[-1]
+        d = _level_displacement(cfg, k)
+        if flow is None:
+            if cfg.use_initial_flow and initial_flow is not None:
+                flow = (resize_area(initial_flow.float(), (hk, wk))
+                        * (cfg.pyr_scale ** k))
+            else:
+                flow = torch.zeros(r0.shape[:-3] + (2, hk, wk),
+                                   dtype=torch.float32, device=r0.device)
+        else:
+            flow = resize_linear(flow, (hk, wk)) * (1.0 / cfg.pyr_scale)
+        if round_level_flow and not _tiny_level(d, hk, wk):
+            flow = flow.to(torch.bfloat16).float()
+        flow = umuf_iterate(r0, r1, flow.contiguous(), cfg.iterations, d,
+                            cfg.winsize, ramp_bf16=ramp_bf16)
+    return flow
 
 
 def smoothed_level_image(img: torch.Tensor, level: int, out_hw: tuple[int, int],
@@ -241,29 +328,22 @@ def polyexp_pyramid(img: torch.Tensor, cfg: FlowConfig) -> list[torch.Tensor]:
 def flow_from_pyramids(r0_levels: list[torch.Tensor],
                        r1_levels: list[torch.Tensor], cfg: FlowConfig,
                        initial_flow: torch.Tensor | None = None) -> torch.Tensor:
-    """Coarse-to-fine flow from precomputed expansion pyramids.
+    """Coarse-to-fine flow from precomputed expansion pyramids (counterpart
+    of the JAX package's ``flow_from_pyramids``).
 
-    r*_levels[k]: (B, 5, h_k, w_k); initial_flow: (B, 2, H, W) full
-    resolution, INTER_AREA-resized to the coarsest level and scaled by
-    pyr_scale**k.  Returns (B, 2, H, W).
+    r*_levels[k]: (B, 5, h_k, w_k), float32 or bfloat16; initial_flow:
+    (B, 2, H, W) full resolution, INTER_AREA-resized to the coarsest level
+    and scaled by pyr_scale**k.  On a bfloat16 pyramid each Pallas level's
+    input flow is rounded to bfloat16, as the JAX package's does.  The
+    coarsest level starts from a float32 zero flow (the JAX package's is in
+    the pyramid dtype, which runs a bf16 pyramid's tiny coarsest level in
+    bf16 arithmetic; the port runs every tiny level as the prepped solver
+    does, in float32).  Returns (B, 2, H, W) float32.
     """
-    levels = len(r0_levels) - 1
-    flow = None
-    for k in range(levels, -1, -1):
-        r0 = r0_levels[k]
-        hk, wk = r0.shape[-2], r0.shape[-1]
-        if flow is None:
-            if cfg.use_initial_flow and initial_flow is not None:
-                flow = resize_area(initial_flow, (hk, wk)) * (cfg.pyr_scale ** k)
-            else:
-                flow = torch.zeros(r0.shape[:-3] + (2, hk, wk),
-                                   dtype=r0.dtype, device=r0.device)
-        else:
-            flow = resize_linear(flow, (hk, wk)) * (1.0 / cfg.pyr_scale)
-        flow = umuf_iterate(r0, r1_levels[k], flow.contiguous(),
-                            cfg.iterations, _level_displacement(cfg, k),
-                            cfg.winsize)
-    return flow
+    levels = [_level_operands(cfg, k, r0, r1)
+              for k, (r0, r1) in enumerate(zip(r0_levels, r1_levels))]
+    return _solve_levels(levels, cfg, initial_flow,
+                         round_level_flow=r0_levels[0].dtype == torch.bfloat16)
 
 
 def tap_solver(padded: torch.Tensor, interior_start: int, n: int,
@@ -271,17 +351,21 @@ def tap_solver(padded: torch.Tensor, interior_start: int, n: int,
     """Per-pass tap-pair solver (counterpart of ``prepped_tap_solver``).
 
     Builds the expansion pyramid of the whole padded stack (N + 2*ks2, H, W)
-    once.  The returned ``solve(start, init_flow)`` solves the flows from
-    the targets ``padded[interior_start:interior_start+n]`` to the
-    references ``padded[start:start+n]``; both are views into the one
-    pyramid, so no tap copies an operand.  Returns (n, 2, H, W).
+    once, in padded's dtype, and its kernel operands once per level: r0 the
+    targets ``padded[interior_start:interior_start+n]`` in float32, r1 the
+    whole stack in bfloat16 on the packed levels, else in float32 (a view
+    of a float32 pyramid).  The returned ``solve(start, init_flow)`` solves
+    the flows from the targets to the references ``padded[start:start+n]``,
+    a view into r1, so no tap copies an operand.  As the prepped solver,
+    it keeps the flow in float32 between levels.  Returns (n, 2, H, W).
     """
-    r_levels = polyexp_pyramid(padded, cfg)
-    r0_levels = [r[interior_start:interior_start + n] for r in r_levels]
+    levels = [_level_operands(cfg, k, r[interior_start:interior_start + n], r)
+              for k, r in enumerate(polyexp_pyramid(padded, cfg))]
 
     def solve(start: int, init_flow: torch.Tensor | None = None):
-        r1_levels = [r[start:start + n] for r in r_levels]
-        return flow_from_pyramids(r0_levels, r1_levels, cfg, init_flow)
+        return _solve_levels([(r0, r1[start:start + n], ramp)
+                              for r0, r1, ramp in levels],
+                             cfg, init_flow, round_level_flow=False)
 
     return solve
 
@@ -292,15 +376,16 @@ def farneback_flow(reference: torch.Tensor, target: torch.Tensor,
     """Dense optical flow from ``target`` to ``reference`` (cv2 order of the
     reference wrapper: prev=target, next=reference).
 
-    reference, target: (..., H, W) float32 images.  initial_flow and the
-    result: (..., H, W, 2), channel 0 = x displacement, such that
-    ``warp_slices(reference, flow) ~ target``.
+    reference, target: (..., H, W) images, taken to ``cfg.dtype``.
+    initial_flow and the result: (..., H, W, 2) float32, channel 0 = x
+    displacement, such that ``warp_slices(reference, flow) ~ target``.
     """
     cfg.check_ported()
     lead = target.shape[:-2]
     h, w = target.shape[-2], target.shape[-1]
-    t = target.reshape(-1, h, w).to(torch.float32)
-    r = reference.reshape(-1, h, w).to(torch.float32)
+    dtype = getattr(torch, cfg.dtype)
+    t = target.reshape(-1, h, w).to(dtype)
+    r = reference.reshape(-1, h, w).to(dtype)
     f0 = None
     if initial_flow is not None:
         f0 = initial_flow.reshape(-1, h, w, 2).permute(0, 3, 1, 2)

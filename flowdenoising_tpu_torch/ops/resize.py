@@ -3,9 +3,14 @@
 Counterpart of ``flowdenoising_tpu/ops/resize.py``.  Every resample of the
 Farneback pyramid (OpenCV INTER_LINEAR for image and flow, INTER_AREA for
 the seed flow) is ``out = W_rows @ img @ W_cols^T`` with weight matrices
-built on the host in float64 and cast to float32.  The products run in full
-float32: ``torch.backends.cuda.matmul.allow_tf32`` must stay False (the
-default), which ``chip_smoke.py`` checks.
+built on the host in float64 and cast to the input's dtype.  The products
+run in full float32: ``torch.backends.cuda.matmul.allow_tf32`` must stay
+False (the default), which ``chip_smoke.py`` checks.  A bfloat16 input (a
+``--dtype bfloat16`` pass) has its weights rounded to bfloat16 and each of
+the two products rounded to bfloat16, as the JAX package's bf16 einsum at
+HIGHEST precision rounds them; the product itself is taken in float32 (a
+product of two bf16 values is exact there), not as a bf16 matrix product
+whose reduction the library may round on the way.
 
 Weight conventions match OpenCV:
 - linear: source coordinate ``s = (d + 0.5) * (in/out) - 0.5``, bilinear taps
@@ -65,11 +70,13 @@ def area_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
 def _apply_separable(img: torch.Tensor, wr: np.ndarray,
                      wc: np.ndarray) -> torch.Tensor:
     """img: (..., H, W); wr: (H', H); wc: (W', W) -> (..., H', W'), rows
-    first, then columns, in float32."""
-    wr_t = torch.as_tensor(wr, dtype=img.dtype, device=img.device)
-    wc_t = torch.as_tensor(wc, dtype=img.dtype, device=img.device)
-    out = torch.einsum("hH,...HW->...hW", wr_t, img)
-    return torch.einsum("wW,...hW->...hw", wc_t, out)
+    first, then columns, each product in float32 and rounded to img's
+    dtype."""
+    dtype = img.dtype
+    wr_t = torch.as_tensor(wr, dtype=dtype, device=img.device).float()
+    wc_t = torch.as_tensor(wc, dtype=dtype, device=img.device).float()
+    out = torch.einsum("hH,...HW->...hW", wr_t, img.float()).to(dtype)
+    return torch.einsum("wW,...hW->...hw", wc_t, out.float()).to(dtype)
 
 
 def resize_linear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

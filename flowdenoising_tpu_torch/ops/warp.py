@@ -59,8 +59,11 @@ def displace_sample_plain(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     no clamp), then ``bilinear_sample`` at (x + u, y + v).
 
     src is (..., H, W), or (..., C, H, W) with u, v (..., H, W) shared
-    across C.
+    across C.  A bfloat16 src (the packed forms' source) is widened to
+    float32 and sampled in float32, the plain version of every packed form.
     """
+    if src.dtype == torch.bfloat16:
+        src = src.float()
     if max_displacement is not None:
         d = float(max_displacement)
         u = u.clamp(-d, d)

@@ -8,7 +8,9 @@ it logs the measured report of ``utils.trace_report``.
 
 The OFE_solve stage times the split iteration ``update_flow(
 update_matrices(...))`` -- the kernels K-um and K-uf -- as the JAX
-package's report does, not the fused K-umuf that the run itself uses.
+package's report does, not the fused K-umuf that the run itself uses; with
+``--precision bfloat16`` and a bound, K-um's packed form (r1 in bfloat16),
+as the JAX report samples packed.
 """
 
 from __future__ import annotations
@@ -113,13 +115,16 @@ def device_stage_report(vol_shape: tuple[int, int, int], cfg: FilterConfig,
                 img)
             totals["OFE_expansion"] += t_pe * scale
             r0 = poly_expand(img, fcfg.poly_n, fcfg.poly_sigma).contiguous()
+            r1 = r0 + 0.01
+            if fcfg.precision == "bfloat16" and d is not None:
+                r1 = r1.to(torch.bfloat16)
             # the JAX report's channels-last draw, moved channel-first
             flow0 = tensor(np.moveaxis(
                 0.5 * rng.standard_normal((b, hk, wk, 2)), -1, -3))
             t_it = timed(
                 lambda f, a, bb: update_flow(update_matrices(a, bb, f, d),
                                              fcfg.winsize),
-                flow0, r0, r0 + 0.01)
+                flow0, r0, r1)
             totals["OFE_solve"] += (t_it * fcfg.iterations * n_solves
                                     * (scale_n if fcfg.tap_mode == "solve"
                                        else scale))

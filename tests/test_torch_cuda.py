@@ -9,7 +9,8 @@ conftest, so it runs on a machine with the card and no JAX:
 Tolerances are the JAX package's own kernel bars: sampling atol 2e-4 on
 data of scale ~50, Farneback iterations and K-um atol 5e-4 / rtol 1e-4,
 K-uf atol 1e-4 / rtol 1e-4, compose tap flow atol 1e-5 / accumulator atol
-1e-4, end to end PSNR >= 55 dB.
+1e-4, end to end PSNR >= 55 dB.  The packed forms (bf16 sources) and the
+bf16 carry rounding are held to their plain versions at atol 0.
 """
 
 import numpy as np
@@ -137,6 +138,69 @@ def test_compose_kernel_matches_plain(dev, n, h, w, d):
     torch.testing.assert_close(acc, ar, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("b,h,w,winsize,d,ramp_bf16", [
+    (2, 64, 64, 5, 5, False), (3, 37, 70, 7, 3, False), (2, 32, 32, 5, 2, True),
+    (1, 3, 3, 5, 2, True), (2, 100, 130, 15, 9, False), (4, 256, 256, 5, 9, False),
+])
+def test_umuf_bf16_kernel_matches_plain(dev, b, h, w, winsize, d, ramp_bf16):
+    # K-umuf-bf16: r1 in bfloat16, counted apart from the float32 form
+    r = np.random.default_rng(h * w + winsize + 1)
+    rr = F.poly_expand(_t(r.normal(size=(2, b, h, w)) * 40, dev)).contiguous()
+    r1 = rr[1].to(torch.bfloat16)
+    flow = _t(r.normal(size=(b, 2, h, w)) * 2, dev)
+    plan = plan_umuf(h, w, winsize, 3)
+    before = dict(K.LAUNCHES)
+    out = umuf_iterate(rr[0], r1, flow, 3, d, winsize, ramp_bf16=ramp_bf16)
+    assert K.LAUNCHES["umuf_bf16"] == before["umuf_bf16"] + len(plan.launches)
+    assert K.LAUNCHES["umuf"] == before["umuf"]
+    ref = F.umuf_iterate_plain(rr[0], r1, flow, 3, d, winsize, ramp_bf16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("b,h,w,d", [(2, 64, 64, 9), (3, 37, 70, None),
+                                     (8, 256, 256, 9)])
+def test_um_bf16_kernel_matches_plain(dev, b, h, w, d):
+    r = np.random.default_rng(h * w + b + 1)
+    rr = F.poly_expand(_t(r.normal(size=(2, b, h, w)) * 40, dev)).contiguous()
+    r1 = rr[1].to(torch.bfloat16)
+    flow = r.normal(size=(b, 2, h, w)) * 1.5
+    flow[:, 0, : h // 4] += 3 * (d or 8)
+    flow = _t(flow, dev)
+    before = dict(K.LAUNCHES)
+    out = update_matrices(rr[0], r1, flow, d)
+    assert K.LAUNCHES["um_bf16"] == before["um_bf16"] + 1
+    assert K.LAUNCHES["um"] == before["um"]
+    ref = F.update_matrices_plain(rr[0], r1, flow, d)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("src", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,w,d,round_carry", [
+    (3, 64, 80, 8, True), (2, 33, 47, None, True), (2, 256, 256, 8, False),
+    (2, 256, 256, 8, True)])
+def test_compose_forms_match_plain(dev, src, n, h, w, d, round_carry):
+    # K-compose with bf16 sources (the packed form) and/or the bf16 carry
+    dtype = getattr(torch, src)
+    r = np.random.default_rng(n * h + w + 1)
+    link = _t(r.normal(size=(n + 5, 2, h, w)) * 0.6, dev).to(dtype)
+    nb = _t(r.normal(size=(n + 7, h, w)) * 50, dev).to(dtype)
+    flow = r.normal(size=(n, 2, h, w)) * 3
+    flow[:, 0, : h // 4] += 3 * (d or 8)
+    flow = _t(flow, dev)
+    acc = _t(r.normal(size=(n, h, w)) * 20, dev)
+    fr, ar = compose_tap_plain(link[4:4 + n], flow, nb[6:6 + n], acc,
+                               float(np.float32(0.13)), d, round_carry)
+    form = "compose_bf16" if src == "bfloat16" else "compose"
+    before = K.LAUNCHES[form]
+    compose_tap(link, flow, nb, acc, 0.13, d, 4, 6, round_carry=round_carry)
+    assert K.LAUNCHES[form] == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(flow, fr, atol=0, rtol=0)
+    torch.testing.assert_close(acc, ar, atol=0, rtol=0)
+
+
 def test_wrappers_refuse_what_they_do_not_take(dev):
     src = torch.zeros(2, 8, 8, device=dev)
     uv = torch.zeros(2, 8, 8, device=dev)
@@ -172,18 +236,29 @@ def test_wrappers_refuse_what_they_do_not_take(dev):
         update_flow(r.double(), 5)
     with pytest.raises(ValueError, match="halo"):
         update_flow(r, 101)
+    # the packed forms take r1 (and link with nb) in bf16, nothing else
+    with pytest.raises(ValueError):
+        umuf_iterate(r.to(torch.bfloat16), r, f, 1, 2, 5)
+    with pytest.raises(ValueError):
+        update_matrices(r, r.half(), f, 2)
+    with pytest.raises(ValueError):
+        compose_tap(f.to(torch.bfloat16), f, src, src, 0.5, 2, 0, 0)
 
 
-@pytest.mark.parametrize("tap_mode,presmooth", [
-    ("solve", 0.0), ("compose", 0.0), ("solve", 1.5)])
-def test_denoise_card_matches_cpu(dev, tap_mode, presmooth):
+@pytest.mark.parametrize("tap_mode,presmooth,bf16", [
+    ("solve", 0.0, False), ("compose", 0.0, False), ("solve", 1.5, False),
+    ("solve", 0.0, True), ("compose", 0.0, True)])
+def test_denoise_card_matches_cpu(dev, tap_mode, presmooth, bf16):
     r = np.random.default_rng(0)
     z = np.arange(12)[:, None, None]
     y = np.arange(40)[None, :, None]
     x = np.arange(36)[None, None, :]
     vol = (100 * np.sin(0.3 * (x + 0.5 * z)) * np.cos(0.25 * (y - 0.3 * z))
            + r.normal(0, 10, (12, 40, 36))).astype(np.float32)
-    cfg = FilterConfig(flow=FlowConfig(tap_mode=tap_mode, presmooth=presmooth))
+    fast = dict(dtype="bfloat16", precision="bfloat16",
+                symmetric_adjacent=tap_mode == "compose") if bf16 else {}
+    cfg = FilterConfig(flow=FlowConfig(tap_mode=tap_mode, presmooth=presmooth,
+                                       **fast))
     on_card = denoise(vol, cfg).cpu().numpy()
     on_cpu = denoise(vol, cfg, device="cpu").numpy()
     mse = np.mean((on_card.astype(np.float64) - on_cpu) ** 2)

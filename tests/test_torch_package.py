@@ -66,8 +66,9 @@ def test_default_device_cuda_raises_without_cuda(mrc_in, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--precision", "bfloat16"], "A9"),
-    (["--dtype", "bfloat16"], "A9"),
+    (["--max_displacement", "0", "--dtype", "bfloat16"], "A9"),
+    (["--max_displacement", "0", "--dtype", "bfloat16", "--tap_flow",
+      "compose"], "A9"),
     (["--stream"], "A10"),
     (["--checkpoint_dir", "ck"], "A10"),
     (["--devices", "2"], "A11"),
@@ -77,6 +78,18 @@ def test_unported_flags_exit_naming_roadmap_item(flags, item, mrc_in, tmp_path):
     with pytest.raises(SystemExit, match=item):
         cli.main(["-i", str(mrc_in), "-o", str(tmp_path / "o.mrc"),
                   "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--precision", "bfloat16"], ["--dtype", "bfloat16"],
+    ["--max_displacement", "0", "--precision", "bfloat16"]])
+def test_bf16_flags_run(flags, mrc_in, tmp_path):
+    # ported (ROADMAP A9); precision bfloat16 with no bound is the float32
+    # path, as in the JAX package
+    out = tmp_path / "o.mrc"
+    assert cli.main(["-i", str(mrc_in), "-o", str(out), "--device", "cpu",
+                     "--max_displacement", "4", *flags]) == 0
+    assert out.exists()
 
 
 @pytest.mark.parametrize("flags,message", [
@@ -91,7 +104,9 @@ def test_bad_auto_flag_values_exit(flags, message, mrc_in, tmp_path):
 
 def test_library_refuses_unported_settings():
     with pytest.raises(NotImplementedError, match="A9"):
-        FlowConfig(precision="bfloat16").check_ported()
+        FlowConfig(dtype="bfloat16", max_displacement=None).check_ported()
+    FlowConfig(dtype="bfloat16", precision="bfloat16").check_ported()  # A9
+    FlowConfig(precision="bfloat16", max_displacement=None).check_ported()
     FlowConfig(presmooth=1.0).check_ported()   # ported (ROADMAP A8)
     FlowConfig().check_ported()
     FlowConfig(tap_mode="compose", symmetric_adjacent=True,
@@ -106,6 +121,7 @@ def test_library_refuses_unported_settings():
                                    use_initial_flow=False, min_size=8)),
     JFilterConfig(flow=JFlowConfig(tap_mode="compose", symmetric_adjacent=True,
                                    adjacent_displacement=3)),
+    JFilterConfig(flow=JFlowConfig(dtype="bfloat16", precision="bfloat16")),
 ])
 def test_from_reference_round_trips(jcfg):
     cfg = from_reference(jcfg)
