@@ -22,7 +22,13 @@ Phases, one or more lines of output each (any failure exits non-zero):
                forms (bf16 sources, --precision bfloat16) K-umuf-bf16,
                K-compose-bf16 (with and without the bf16 carry rounding) and
                K-um-bf16, each equal to its plain version bit for bit, timed
-               beside its float32 form, bound at bf16 source width.
+               beside its float32 form, bound at bf16 source width.  Last
+               K-compose-run and K-compose-run-bf16, the whole compose pass
+               in one launch (the form the compose paths run), bit-identical
+               to compose_run_plain at D 8 and None, with and without the
+               carry rounding and the symmetric sign, and timed at the main
+               path's pass call beside the 16 per-tap K-compose launches it
+               replaced.
 4. main     -- paths through the CLI (python -m flowdenoising_tpu_torch
                ... -s 2 2 2) on a seeded size^3 blob volume with noise,
                through MRC files: at --max_displacement 8 solve mode,
@@ -50,7 +56,7 @@ Phases, one or more lines of output each (any failure exits non-zero):
 5. e2e      -- a 24x96x96 volume through ``denoise`` on the card (kernels)
                and on the CPU (plain versions), in solve and in compose
                mode, presmoothed, and in both bf16 paths: PSNR >= 55 dB
-               between them, or bit-identical.
+               between them; the compose and fast outputs bit-identical.
 
 The last lines are the card's nvidia-smi line, a JSON object of the kernels
 and, last, ``{"ok": true, "device": {...}}``.
@@ -458,6 +464,123 @@ def phase_kernels(dev, seed: int) -> dict:
     res["uf"] = dict(max_abs_err=err, **main)
     del m
     res.update(packed_forms(r, t, banded_flow, umuf_operands))
+    res.update(compose_runs(r, t))
+    return res
+
+
+def compose_runs(r, t, n: int = 256) -> dict:
+    """K-compose-run and K-compose-run-bf16 (one launch a compose pass)
+    against compose_run_plain at atol 0, on 16 planes of n^2 and at the
+    main path's pass call (n planes of n^2, ks2 8), timed there beside the
+    2*ks2 per-tap K-compose launches it replaced."""
+    from flowdenoising_tpu_torch.ops.cuda.compose import (
+        compose_run, compose_run_plain, compose_tap)
+
+    bf16 = torch.bfloat16
+
+    def operands(planes, ks2, h, w, symmetric, src):
+        """Link stacks (planes + 2*ks2 - 1, scale 0.6), the padded stack
+        (planes + 2*ks2, scale ~50), the center accumulator, the weights of
+        the taps of sigma ks2/4 (offsets -1 .. -ks2, then +1 .. +ks2)."""
+        fwd = t(r.normal(size=(planes + 2 * ks2 - 1, 2, h, w)) * 0.6).to(src)
+        bwd = None if symmetric else t(
+            r.normal(size=(planes + 2 * ks2 - 1, 2, h, w)) * 0.6).to(src)
+        nb = t(r.normal(size=(planes + 2 * ks2, h, w)) * 50).to(src)
+        acc = t(r.normal(size=(planes, h, w)) * 20)
+        taps = np.exp(-0.5 * (np.arange(-ks2, ks2 + 1) / (ks2 / 4)) ** 2)
+        taps /= taps.sum()
+        weights = [float(np.float32(taps[ks2 + s * j]))
+                   for s in (-1, 1) for j in range(1, ks2 + 1)]
+        return fwd, bwd, nb, acc, weights
+
+    def check(what, ops, d, round_carry):
+        fwd, bwd, nb, acc, weights = ops
+        ref = compose_run_plain(fwd, bwd, nb, acc, weights, d, round_carry)
+        out = compose_run(fwd, bwd, nb, acc.clone(), weights, d, round_carry)
+        torch.cuda.synchronize()
+        e = float((out - ref).abs().max())
+        require(torch.equal(out, ref), f"{what}: not bit-identical to "
+                f"compose_run_plain (max abs err {e})")
+        return e
+
+    def per_tap(ops, d, round_carry):
+        """The pass's 2*ks2 per-tap K-compose launches (and the two flow
+        resets) that K-compose-run replaces."""
+        fwd, bwd, nb, acc, weights = ops
+        ks2 = len(weights) // 2
+        bwd = -fwd if bwd is None else bwd
+        flow = torch.zeros((acc.shape[0], 2) + tuple(acc.shape[1:]),
+                           device=acc.device)
+
+        def run():
+            for sign, adj, shift in ((-1, bwd, 0), (1, fwd, -1)):
+                flow.zero_()
+                for j in range(1, ks2 + 1):
+                    start = ks2 + sign * j
+                    compose_tap(adj, flow, nb, acc, weights[ks2 * (sign > 0) + j - 1],
+                                d, start + shift, start, round_carry=round_carry)
+        return run
+
+    res, err = {}, {"f32": 0.0, "bf16": 0.0}
+    # ks2 8 (sigma 2) runs the two chains side by side, ks2 12 (sigma 3)
+    # one after the other
+    for ks2 in (8, 12):
+        for symmetric in (False, True):
+            for d in (8, None):
+                for round_carry in (False, True):
+                    for src in (torch.float32, bf16):
+                        ops = operands(16, ks2, n, n, symmetric, src)
+                        form = "bf16" if src == bf16 else "f32"
+                        err[form] = max(err[form], check(
+                            f"K-compose-run ({form}) (16,{n},{n}) ks2 {ks2} "
+                            f"D={d} round_carry={round_carry} "
+                            f"symmetric={symmetric}", ops, d, round_carry))
+    print(f"[3 kernels] K-compose-run and K-compose-run-bf16 (16,{n},{n}) ks2 8 "
+          f"and 12, D 8 and None, round_carry on and off, two link stacks and "
+          f"the symmetric sign: bit-identical to compose_run_plain", flush=True)
+    # the main path's pass call at 256^3: n 256, ks2 8, 271-plane link
+    # stacks, the 272-plane padded stack; float32 as compose mode runs it
+    # (two link stacks), bf16 as the fast mode does (symmetric, the carry
+    # rounded)
+    ks2 = 8
+    for form, src, symmetric, round_carry in (("f32", torch.float32, False, False),
+                                              ("bf16", bf16, True, True)):
+        ops = operands(n, ks2, n, n, symmetric, src)
+        fwd, bwd, nb, acc, weights = ops
+        name = "compose_run_bf16" if form == "bf16" else "compose_run"
+        err[form] = max(err[form], check(f"K-compose-run ({form}) main-path call",
+                                         ops, 8, round_carry))
+        taps = per_tap(ops, 8, round_carry)
+        times = {"run": [], "taps": []}
+        for which in ("run", "taps", "taps", "run"):
+            fn = (taps if which == "taps" else
+                  lambda: compose_run(fwd, bwd, nb, acc, weights, 8, round_carry))
+            times[which].append(cuda_ms(fn, reps=5))
+        ms = sum(times["run"]) / 2
+        tap_ms = sum(times["taps"]) / 2
+        pms = cuda_ms(lambda: compose_run_plain(fwd, bwd, nb, acc, weights, 8,
+                                                round_carry), reps=1, warmup=1)
+        # the center tap the pass puts into the accumulator before the run
+        cms = cuda_ms(lambda: (nb[ks2:ks2 + n] * weights[0]).float())
+        # each link and neighbour plane read once, the accumulator read and
+        # written once; 2*ks2 steps of COMPOSE_FLOPS a pixel
+        size = 2 if form == "bf16" else 4
+        links = fwd.numel() * (1 if bwd is None else 2)
+        bms, by = bound(size * (links + nb.numel()) + 8 * acc.numel(),
+                        2 * ks2 * COMPOSE_FLOPS * acc.numel())
+        text = "; ".join(f"{k} " + ", ".join(f"{v:.4f}" for v in vs)
+                         for k, vs in times.items())
+        print(f"[3 kernels] K-compose-run{'-bf16' if form == 'bf16' else ''} "
+              f"main-path pass call (n {n}, ks2 {ks2}, {n}^2, D 8, "
+              f"{'symmetric, round_carry' if symmetric else 'two link stacks'}, "
+              f"stacks {fwd.shape[0]}/{nb.shape[0]}): max_abs_err {err[form]:.3g} "
+              f"(bit-identical), kernel {ms:.4f} ms, the {2 * ks2} per-tap "
+              f"K-compose launches {tap_ms:.4f} ms ({text}), plain {pms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}); no single library call; the center "
+              f"tap before it {cms:.4f} ms", flush=True)
+        res[name] = dict(max_abs_err=err[form], ms=ms, plain_ms=pms, bound_ms=bms,
+                         bound_by=by, library_ms=None)
+        del ops, fwd, bwd, nb, acc
     return res
 
 
@@ -596,12 +719,13 @@ def expected_launches(shape, cfg) -> dict:
     """Launches the tap and level loops imply for one denoise of ``shape``,
     per kernel form: solve mode solves every tap pair and warps with
     K-sample; compose mode solves the adjacent pairs once per direction
-    (once with symmetric_adjacent) and runs one K-compose per tap.  A solve
-    launches K-umuf as its planner plans each pyramid level, in the packed
-    form (umuf_bf16) on the levels where the JAX package packs
+    (once with symmetric_adjacent) and runs one K-compose-run per pass.  A
+    solve launches K-umuf as its planner plans each pyramid level, in the
+    packed form (umuf_bf16) on the levels where the JAX package packs
     (``_packed_at_level``: --precision bfloat16, outside the tiny route).
-    K-compose runs packed (compose_bf16) with --precision bfloat16.  A
-    denoise never launches K-um or K-uf (its solves run fused in K-umuf)."""
+    K-compose-run runs packed (compose_run_bf16) with --precision bfloat16.
+    A denoise never launches the per-tap K-compose, K-um or K-uf (its
+    solves run fused in K-umuf)."""
     from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
     from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf
     from flowdenoising_tpu_torch.ops.farneback import _packed_at_level
@@ -615,7 +739,7 @@ def expected_launches(shape, cfg) -> dict:
         adj = dataclasses.replace(f, max_displacement=min(
             f.max_displacement, f.adjacent_displacement))
     packed = f.precision == "bfloat16" and f.max_displacement is not None
-    compose = "compose_bf16" if packed else "compose"
+    compose = "compose_run_bf16" if packed else "compose_run"
     n = no_launches()
     for taps, (h, w) in zip(get_gaussian_kernels(cfg.sigma), planes):
         n_taps = len(taps) - 1
@@ -626,7 +750,10 @@ def expected_launches(shape, cfg) -> dict:
             form = "umuf_bf16" if _packed_at_level(adj, k, hk, wk) else "umuf"
             n[form] += solves * len(plan_umuf(hk, wk, f.winsize,
                                               f.iterations).launches)
-        n[compose if f.tap_mode == "compose" else "sample"] += n_taps
+        if f.tap_mode == "compose":
+            n[compose] += 1 if n_taps else 0
+        else:
+            n["sample"] += n_taps
     return n
 
 
@@ -662,7 +789,8 @@ def wall_s(fn) -> float:
 def kernel_family(name: str) -> str:
     """A device kernel's family, for the device-time split."""
     low = name.lower()
-    for key, family in (("compose_kernel", "K-compose"), ("umuf_kernel", "K-umuf"),
+    for key, family in (("compose_run_kernel", "K-compose-run"),
+                        ("compose_kernel", "K-compose"), ("umuf_kernel", "K-umuf"),
                         ("sample_kernel", "K-sample"), ("memcpy", "memcpy"),
                         ("memset", "memset"), ("gemm", "matmul (resize einsums)"),
                         ("xmma", "matmul (resize einsums)"),
@@ -1010,6 +1138,10 @@ def phase_e2e(dev, seed: int) -> None:
         p = psnr(on_card, on_cpu)
         require(p >= 55.0, f"{name}: card vs CPU PSNR {p:.2f} dB < 55")
         same = "bit-identical" if np.array_equal(on_card, on_cpu) else "not bit-identical"
+        # the compose passes: K-compose-run on the card, its plain chain of
+        # steps on the CPU
+        require(same == "bit-identical" or name not in ("compose", "fast"),
+                f"{name}: the card's output is not the CPU's bit for bit")
         print(f"[5 e2e] 24x96x96 {name} denoise, card (kernels) vs CPU (plain): "
               f"PSNR {p:.2f} dB (bar 55), {same}; max abs diff "
               f"{float(np.abs(on_card - on_cpu).max()):.3g}", flush=True)
@@ -1031,9 +1163,10 @@ def main() -> int:
     phase_e2e(dev, args.seed)
 
     # each kernel form's launches from the path that defines it: K-umuf and
-    # K-sample from solve mode, K-compose from compose mode, K-um and K-uf
-    # from the auto_v2 CLI run that falls back to the reconstruction; the
-    # packed forms from the bf16 paths (K-um-bf16 from solve_bf16's
+    # K-sample from solve mode, K-compose-run (and the per-tap K-compose,
+    # which no denoise launches now) from compose mode, K-um and K-uf from
+    # the auto_v2 CLI run that falls back to the reconstruction; the packed
+    # forms from the bf16 paths (K-um-bf16 from solve_bf16's
     # reconstruction)
     kernels = {
         "umuf": ("flowdenoising_tpu_torch/csrc/umuf.cu",
@@ -1053,6 +1186,10 @@ def main() -> int:
         "um_bf16": ("flowdenoising_tpu_torch/csrc/um.cu",
                     "flowdenoising_tpu/ops/pallas/update_matrices.py:54",
                     "solve_bf16"),
+        "compose_run": ("flowdenoising_tpu_torch/csrc/compose.cu",
+                        "flowdenoising_tpu/ops/pallas/compose.py:141", "compose"),
+        "compose_run_bf16": ("flowdenoising_tpu_torch/csrc/compose.cu",
+                             "flowdenoising_tpu/ops/pallas/compose.py:141", "fast"),
     }
     print(card)
     print(json.dumps({"kernels": [

@@ -10,9 +10,9 @@ Counterpart of ``flowdenoising_tpu/core/axis_filter.py``:
   the previous tap's flow), the neighbour is warped onto the slice by that
   flow (K-sample), and added in with the tap weight.  Compose: Farneback
   runs once per direction on every adjacent slice pair, and the flow to the
-  tap at distance j is composed from the chain of adjacent flows, one
-  K-compose launch per tap.  In both, flow is chained outward from the
-  center in two runs and reset to zero between them.
+  tap at distance j is composed from the chain of adjacent flows, all taps
+  of a pass in one K-compose-run launch.  In both, flow is chained outward
+  from the center in two runs and reset to zero between them.
 
 All output slices of a pass form one batch; the expansion pyramid of every
 slice is built once per pass and shared by all taps.  With
@@ -42,7 +42,7 @@ import torch
 
 from flowdenoising_tpu_torch.config import Boundary, FlowConfig
 from flowdenoising_tpu_torch.ops.blur import gaussian_blur, rounded
-from flowdenoising_tpu_torch.ops.cuda.compose import compose_tap
+from flowdenoising_tpu_torch.ops.cuda.compose import compose_run
 from flowdenoising_tpu_torch.ops.farneback import (
     flow_from_pyramids, polyexp_pyramid, tap_solver)
 from flowdenoising_tpu_torch.ops.warp import displace_sample
@@ -145,8 +145,9 @@ def _of_pass_composed(padded: torch.Tensor, taps: np.ndarray,
     k, or ``-adj_fwd`` with ``symmetric_adjacent``), with the bound
     tightened to ``min(D, adjacent_displacement)`` when both are set.  The
     flow to the tap at distance j is composed outward, F_j = F_{j-1} +
-    warp(link, F_{j-1}), and each tap adds the neighbour warped by F_j
-    (K-compose).  The adjacent solves take no seed, so
+    warp(link, F_{j-1}), and each tap adds the neighbour warped by F_j; the
+    whole pass is one K-compose-run launch, with the flow in registers.
+    The adjacent solves take no seed, so
     ``use_initial_flow`` has no effect here.  padded is in the pass dtype;
     the result is float32.
     """
@@ -166,23 +167,16 @@ def _of_pass_composed(padded: torch.Tensor, taps: np.ndarray,
     src = (torch.bfloat16 if flow_cfg.precision == "bfloat16" and d is not None
            else torch.float32)
     adj_fwd = flow_from_pyramids(lo, hi, adj_cfg, None).to(dtype).to(src)
-    if flow_cfg.symmetric_adjacent:
-        adj_bwd = -adj_fwd
-    else:
-        adj_bwd = flow_from_pyramids(hi, lo, adj_cfg, None).to(dtype).to(src)
+    # symmetric: the backward links are -adj_fwd, which K-compose-run reads
+    # with a sign (None), not as a negated copy
+    adj_bwd = (None if flow_cfg.symmetric_adjacent else
+               flow_from_pyramids(hi, lo, adj_cfg, None).to(dtype).to(src))
     del r_levels, lo, hi
 
     nb = padded.to(src)
     acc = (padded[ks2:ks2 + n] * rounded(taps[ks2], dtype)).float()
-    flow = torch.zeros((n, 2) + tuple(padded.shape[1:]), dtype=torch.float32,
-                       device=padded.device)
-    # backward run: the link of distance j is adj_bwd[start]; forward run:
-    # adj_fwd[start - 1] (start = ks2 + offset, the neighbour's index)
-    for sign, adj, shift in ((-1, adj_bwd, 0), (+1, adj_fwd, -1)):
-        flow.zero_()
-        for j in range(1, ks2 + 1):
-            start = ks2 + sign * j
-            compose_tap(adj, flow, nb, acc, rounded(taps[ks2 + sign * j], dtype),
-                        d, start + shift, start,
-                        round_carry=dtype != torch.float32)
-    return acc
+    # offsets -1 .. -ks2, then +1 .. +ks2
+    weights = [rounded(taps[ks2 + sign * j], dtype)
+               for sign in (-1, +1) for j in range(1, ks2 + 1)]
+    return compose_run(adj_fwd, adj_bwd, nb, acc, weights, d,
+                       round_carry=dtype != torch.float32)

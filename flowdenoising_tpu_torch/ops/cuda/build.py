@@ -33,6 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _COMPOSE = ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P], _I)
+_COMPOSE_RUN = ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P], _I)
 _UMUF = ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _F, _I, _I, _I, _I, _P],
          _I)
 _UM = ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _P], _I)
@@ -42,6 +43,8 @@ _UM = ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _P], _I)
 SIGNATURES = {
     "fdt_compose_step": _COMPOSE,
     "fdt_compose_step_bf16": _COMPOSE,
+    "fdt_compose_run": _COMPOSE_RUN,
+    "fdt_compose_run_bf16": _COMPOSE_RUN,
     "fdt_sample": ([_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _F, _I,
                     _P], _I),
     "fdt_umuf": _UMUF,

@@ -94,3 +94,101 @@ def compose_tap(link: torch.Tensor, flow: torch.Tensor,
     check(rc, entry)
     LAUNCHES[form] += 1
     return flow, acc
+
+
+def compose_run_plain(adj_fwd: torch.Tensor, adj_bwd: torch.Tensor | None,
+                      neighbor: torch.Tensor, acc: torch.Tensor, weights,
+                      d: int | None, round_carry: bool = False) -> torch.Tensor:
+    """Plain version of K-compose-run: the taps of one compose pass as a
+    chain of ``compose_tap_plain`` steps, in the pass's order.
+
+    ``weights`` holds 2*ks2 tap weights, offsets -1 .. -ks2 then +1 ..
+    +ks2.  Starting from acc (the center tap), the backward run composes
+    flow from zero through the links ``adj_bwd[ks2-j+b]`` and adds
+    neighbour ``ks2-j+b`` at each offset -j; the flow goes back to zero;
+    the forward run takes links ``adj_fwd[ks2+j-1+b]`` and neighbours
+    ``ks2+j+b``.  ``adj_bwd`` None stands for ``-adj_fwd`` (symmetric
+    adjacent flows).  Returns the new float32 accumulator.
+    """
+    ks2 = len(weights) // 2
+    n = acc.shape[0]
+    for sign in (-1, +1):
+        f = torch.zeros((n, 2) + tuple(acc.shape[1:]), device=acc.device)
+        for j in range(1, ks2 + 1):
+            start = ks2 + sign * j
+            if sign > 0:
+                link = adj_fwd[start - 1:start - 1 + n]
+            else:
+                link = (-adj_fwd[start:start + n] if adj_bwd is None
+                        else adj_bwd[start:start + n])
+            f, acc = compose_tap_plain(link, f, neighbor[start:start + n], acc,
+                                       weights[ks2 * (sign > 0) + j - 1], d,
+                                       round_carry)
+    return acc
+
+
+def compose_run(adj_fwd: torch.Tensor, adj_bwd: torch.Tensor | None,
+                neighbor: torch.Tensor, acc: torch.Tensor, weights,
+                d: int | None, round_carry: bool = False) -> torch.Tensor:
+    """One whole compose pass (K-compose-run), updating ``acc`` in place.
+
+    adj_fwd, adj_bwd: the adjacent flows (n + 2*ks2 - 1, 2, H, W) of the
+    padded stack, ``adj_bwd`` None for symmetric adjacent flows (the
+    kernel reads adj_fwd with a sign instead of a negated copy); neighbor:
+    the padded stack (n + 2*ks2, H, W); acc: (n, H, W) float32, the
+    center tap on entry; ``weights``: 2*ks2 tap weights (offsets -1 ..
+    -ks2, then +1 .. +ks2), rounded to float32.  The links and neighbor
+    are all float32, or all bfloat16 for the packed form
+    (K-compose-run-bf16, ``--precision bfloat16``); ``round_carry`` rounds
+    the flow and accumulator after every tap to bfloat16 (``--dtype
+    bfloat16``).  Returns acc.
+
+    A CPU tensor takes the plain version (``compose_run_plain``), a CUDA
+    tensor the kernel; any other device raises.
+    """
+    weights = [float(np.float32(w)) for w in weights]
+    ks2 = len(weights) // 2
+    n = acc.shape[0]
+    links = [("adj_fwd", adj_fwd)] + ([] if adj_bwd is None
+                                      else [("adj_bwd", adj_bwd)])
+    h, w = acc.shape[1:] if acc.ndim == 3 else (None, None)
+    bad = (len(weights) % 2 or acc.ndim != 3
+           or neighbor.shape != (n + 2 * ks2, h, w)
+           or any(t.shape != (n + 2 * ks2 - 1, 2, h, w) for _, t in links))
+    if bad:
+        raise ValueError(
+            f"compose_run: expected 2*ks2 weights, acc (n, H, W), neighbor "
+            f"(n + 2*ks2, H, W), links (n + 2*ks2 - 1, 2, H, W); got "
+            f"{len(weights)} weights, acc {tuple(acc.shape)}, neighbor "
+            f"{tuple(neighbor.shape)}, links "
+            f"{[tuple(t.shape) for _, t in links]}")
+    if acc.device.type == "cpu":
+        return acc.copy_(compose_run_plain(adj_fwd, adj_bwd, neighbor, acc,
+                                           weights, d, round_carry))
+    if acc.device.type != "cuda":
+        raise ValueError(f"compose_run: no kernel for device {acc.device}")
+    src = neighbor.dtype if neighbor.dtype == torch.bfloat16 else torch.float32
+    for name, t, dtype in (*((nm, t, src) for nm, t in links),
+                           ("neighbor", neighbor, src),
+                           ("acc", acc, torch.float32)):
+        if t.dtype != dtype or t.device != acc.device or not t.is_contiguous():
+            raise ValueError(f"compose_run: {name} must be contiguous {dtype} "
+                             f"on {acc.device}")
+    if ks2 == 0:
+        return acc
+    packed = src == torch.bfloat16
+    form = "compose_run_bf16" if packed else "compose_run"
+    entry = "fdt_" + form
+    # from pinned memory, so the copy does not wait for the stream to drain
+    wts = torch.tensor(weights, dtype=torch.float32).pin_memory().to(
+        acc.device, non_blocking=True)
+    bwd = adj_fwd if adj_bwd is None else adj_bwd
+    rc = getattr(load_library(), entry)(
+        bwd.data_ptr(), adj_fwd.data_ptr(), neighbor.data_ptr(),
+        acc.data_ptr(), wts.data_ptr(), n, h, w, ks2,
+        -1.0 if adj_bwd is None else 1.0, 0.0 if d is None else float(d),
+        int(d is not None), int(round_carry),
+        torch.cuda.current_stream(acc.device).cuda_stream)
+    check(rc, entry)
+    LAUNCHES[form] += 1
+    return acc

@@ -4,8 +4,10 @@ Counterpart of ``flowdenoising_tpu/ops/resize.py``.  Every resample of the
 Farneback pyramid (OpenCV INTER_LINEAR for image and flow, INTER_AREA for
 the seed flow) is ``out = W_rows @ img @ W_cols^T`` with weight matrices
 built on the host in float64 and cast to the input's dtype.  The products
-run in full float32: ``torch.backends.cuda.matmul.allow_tf32`` must stay
-False (the default), which ``chip_smoke.py`` checks.  A bfloat16 input (a
+run in full float32 whatever the process has set, as the JAX package pins
+them to HIGHEST: ``_full_float32`` sets the float32 precision of the CUDA
+(TF32) and oneDNN (bfloat16 on the CPU) matrix products to "ieee" around
+them and restores the caller's settings after.  A bfloat16 input (a
 ``--dtype bfloat16`` pass) has its weights rounded to bfloat16 and each of
 the two products rounded to bfloat16, as the JAX package's bf16 einsum at
 HIGHEST precision rounds them; the product itself is taken in float32 (a
@@ -20,6 +22,7 @@ Weight conventions match OpenCV:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -67,16 +70,36 @@ def area_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
     return w
 
 
+# The float32 matrix-product settings that torch.set_float32_matmul_precision
+# and torch.backends.fp32_precision reach: "high" or "medium" turns on TF32
+# on CUDA, and "medium" bfloat16 products in oneDNN on the CPU.
+_MATMUL_PRECISIONS = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+
+
+@contextlib.contextmanager
+def _full_float32():
+    """IEEE float32 matrix products inside, the caller's settings after."""
+    saved = [b.fp32_precision for b in _MATMUL_PRECISIONS]
+    try:
+        for b in _MATMUL_PRECISIONS:
+            b.fp32_precision = "ieee"
+        yield
+    finally:
+        for b, p in zip(_MATMUL_PRECISIONS, saved):
+            b.fp32_precision = p
+
+
 def _apply_separable(img: torch.Tensor, wr: np.ndarray,
                      wc: np.ndarray) -> torch.Tensor:
     """img: (..., H, W); wr: (H', H); wc: (W', W) -> (..., H', W'), rows
-    first, then columns, each product in float32 and rounded to img's
+    first, then columns, each product in full float32 and rounded to img's
     dtype."""
     dtype = img.dtype
     wr_t = torch.as_tensor(wr, dtype=dtype, device=img.device).float()
     wc_t = torch.as_tensor(wc, dtype=dtype, device=img.device).float()
-    out = torch.einsum("hH,...HW->...hW", wr_t, img.float()).to(dtype)
-    return torch.einsum("wW,...hW->...hw", wc_t, out.float()).to(dtype)
+    with _full_float32():
+        out = torch.einsum("hH,...HW->...hW", wr_t, img.float()).to(dtype)
+        return torch.einsum("wW,...hW->...hw", wc_t, out.float()).to(dtype)
 
 
 def resize_linear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

@@ -6,8 +6,9 @@ of the reference GPU variant's OFE / warping / convolution accumulators.
 exports the Chrome trace; ``measured_stage_report`` sums the device events
 of that trace by stage:
 
-- ``OFE_solve``     -- the flow-iteration kernels K-umuf, K-compose, K-um
-                       and K-uf (the kernels that return flow stacks);
+- ``OFE_solve``     -- the flow-iteration kernels K-umuf, K-compose,
+                       K-compose-run, K-um and K-uf (the kernels that
+                       return flow stacks, and the compose pass);
 - ``warping``       -- K-sample;
 - ``OFE_expansion`` -- every other kernel inside a ``torch.profiler``
                        range named ``OFE_expansion`` (the port puts one
@@ -34,7 +35,7 @@ import torch
 
 from flowdenoising_tpu_torch.ops.farneback import EXPANSION_RANGE
 
-_SOLVE = re.compile(r"\b(umuf|compose|um|uf)_kernel\b")
+_SOLVE = re.compile(r"\b(umuf|compose|compose_run|um|uf)_kernel\b")
 _WARP = re.compile(r"\bsample_kernel\b")
 _COPY_CATS = ("gpu_memcpy", "gpu_memset")
 

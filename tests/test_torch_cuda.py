@@ -21,11 +21,13 @@ from flowdenoising_tpu_torch.config import FilterConfig, FlowConfig
 from flowdenoising_tpu_torch.core.pipeline import denoise
 from flowdenoising_tpu_torch.ops import cuda as K
 from flowdenoising_tpu_torch.ops import farneback as F
-from flowdenoising_tpu_torch.ops.cuda.compose import compose_tap, compose_tap_plain
+from flowdenoising_tpu_torch.ops.cuda.compose import (
+    compose_run, compose_run_plain, compose_tap, compose_tap_plain)
 from flowdenoising_tpu_torch.ops.cuda.uf import update_flow
 from flowdenoising_tpu_torch.ops.cuda.um import update_matrices
 from flowdenoising_tpu_torch.ops.cuda.build import load_library
 from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf, umuf_iterate
+from flowdenoising_tpu_torch.ops.resize import resize_area, resize_linear
 from flowdenoising_tpu_torch.ops.warp import displace_sample, displace_sample_plain
 
 pytestmark = pytest.mark.cuda
@@ -199,6 +201,97 @@ def test_compose_forms_match_plain(dev, src, n, h, w, d, round_carry):
     torch.cuda.synchronize()
     torch.testing.assert_close(flow, fr, atol=0, rtol=0)
     torch.testing.assert_close(acc, ar, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("src", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,ks2,h,w,d,round_carry,symmetric", [
+    (3, 3, 64, 80, 8, False, False), (2, 2, 33, 47, None, True, False),
+    (2, 8, 256, 256, 8, True, True), (4, 1, 19, 130, 4, False, True),
+    (1, 40, 24, 24, 8, True, False)])
+def test_compose_run_kernel_matches_plain(dev, src, n, ks2, h, w, d,
+                                          round_carry, symmetric):
+    # K-compose-run and its bf16 form: one launch for the whole pass, equal
+    # to the chain of plain steps at atol 0, with the symmetric sign and
+    # ks2 40 (sigma 10)
+    dtype = getattr(torch, src)
+    r = np.random.default_rng(n * h + w + ks2)
+    fwd = _t(r.normal(size=(n + 2 * ks2 - 1, 2, h, w)) * 0.6, dev).to(dtype)
+    bwd = None if symmetric else _t(
+        r.normal(size=(n + 2 * ks2 - 1, 2, h, w)) * 0.6, dev).to(dtype)
+    nb = _t(r.normal(size=(n + 2 * ks2, h, w)) * 50, dev).to(dtype)
+    acc = _t(r.normal(size=(n, h, w)) * 20, dev)
+    weights = [float(np.float32(x)) for x in r.uniform(0.01, 0.2, 2 * ks2)]
+    ref = compose_run_plain(fwd, bwd, nb, acc, weights, d, round_carry)
+    form = "compose_run_bf16" if src == "bfloat16" else "compose_run"
+    before = dict(K.LAUNCHES)
+    out = compose_run(fwd, bwd, nb, acc, weights, d, round_carry)
+    assert out is acc
+    assert K.LAUNCHES == {**before, form: before[form] + 1}
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
+def test_compose_run_refuses_what_it_does_not_take(dev):
+    f = torch.zeros(5, 2, 8, 8, device=dev)
+    nb = torch.zeros(6, 8, 8, device=dev)
+    acc = torch.zeros(2, 8, 8, device=dev)
+    w = [0.1] * 4
+    with pytest.raises(ValueError):
+        compose_run(f, f.to(torch.bfloat16), nb, acc, w, 4)
+    with pytest.raises(ValueError):
+        compose_run(f.to(torch.bfloat16), None, nb, acc, w, 4)
+    with pytest.raises(ValueError):
+        compose_run(f, None, nb, acc.double(), w, 4)
+    with pytest.raises(ValueError):
+        compose_run(f.transpose(2, 3), None, nb, acc, w, 4)
+    with pytest.raises(ValueError):
+        compose_run(f, None, nb.cpu(), acc, w, 4)
+
+
+@pytest.mark.parametrize("fields", [
+    {"tap_mode": "compose"},
+    {"tap_mode": "compose", "symmetric_adjacent": True},
+    {"tap_mode": "compose", "symmetric_adjacent": True, "dtype": "bfloat16",
+     "precision": "bfloat16"}], ids=["compose", "symmetric", "fast"])
+def test_compose_denoise_card_equals_cpu(dev, fields):
+    # the compose passes through K-compose-run on the card and its plain
+    # version on the CPU: the same bits, 3 launches for 3 passes
+    r = np.random.default_rng(1)
+    z = np.arange(12)[:, None, None]
+    y = np.arange(40)[None, :, None]
+    x = np.arange(36)[None, None, :]
+    vol = (100 * np.sin(0.3 * (x + 0.5 * z)) * np.cos(0.25 * (y - 0.3 * z))
+           + r.normal(0, 10, (12, 40, 36))).astype(np.float32)
+    cfg = FilterConfig(flow=FlowConfig(**fields))
+    K.reset_launches()
+    on_card = denoise(vol, cfg).cpu().numpy()
+    form = "compose_run_bf16" if "precision" in fields else "compose_run"
+    assert K.LAUNCHES[form] == 3
+    assert K.LAUNCHES["compose"] == K.LAUNCHES["compose_bf16"] == 0
+    on_cpu = denoise(vol, cfg, device="cpu").numpy()
+    np.testing.assert_array_equal(on_card, on_cpu)
+
+
+@pytest.mark.parametrize("precision", ["high", "medium"])
+def test_resize_keeps_ieee_float32_under_tf32(dev, precision):
+    # "high" and "medium" turn on TF32 products on the card; the resize
+    # einsums stay IEEE float32 and leave the setting as they found it
+    r = np.random.default_rng(3)
+    img = _t(r.normal(size=(4, 2, 256, 256)) * 3, dev)
+    w = _t(r.random((128, 256)), dev)
+    ref = [resize_linear(img, (128, 128)), resize_area(img, (64, 64))]
+    product = w @ img[0, 0]
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(precision)
+    try:
+        # unpinned, this setting moves a float32 product
+        assert not torch.equal(w @ img[0, 0], product)
+        out = [resize_linear(img, (128, 128)), resize_area(img, (64, 64))]
+        assert torch.get_float32_matmul_precision() == precision
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    for o, rr in zip(out, ref):
+        torch.testing.assert_close(o, rr, atol=0, rtol=0)
 
 
 def test_wrappers_refuse_what_they_do_not_take(dev):

@@ -54,9 +54,11 @@ def test_measured_report_groups_kernels(tmp_path, caplog):
          "args": {"name": "python3"}},
         {"name": "thread_name", "ph": "M", "ts": 0.0, "pid": 0, "tid": 7,
          "args": {"name": "stream 7 "}},
-        # flow-solve kernels: K-umuf, K-compose, K-um, K-uf
+        # flow-solve kernels: K-umuf, K-compose, K-compose-run, K-um, K-uf
         _kernel(anon.format("umuf_kernel"), 2000.5, 3_000_000),
         _kernel(anon.format("compose_kernel"), 5000.0, 500_000),
+        _kernel("void " + anon.format("compose_run_kernel<__nv_bfloat16>"),
+                5500.0, 250_000),
         _kernel(anon.format("um_kernel"), 6000.0, 250_000),
         _kernel(anon.format("uf_kernel"), 7000.0, 250_000),
         # K-sample
@@ -84,7 +86,7 @@ def test_measured_report_groups_kernels(tmp_path, caplog):
     ]
     totals = measured_stage_report(_write(tmp_path, events))
     assert set(totals) == STAGES
-    want = {"OFE_solve": 4.0, "warping": 1.0, "OFE_expansion": 0.5,
+    want = {"OFE_solve": 4.25, "warping": 1.0, "OFE_expansion": 0.5,
             "elementwise": 0.125, "async_copies": 2.5}
     for key, secs in want.items():
         assert totals[key] == pytest.approx(secs, abs=1e-12), key
