@@ -57,9 +57,32 @@ Phases, one or more lines of output each (any failure exits non-zero):
                and on the CPU (plain versions), in solve and in compose
                mode, presmoothed, and in both bf16 paths: PSNR >= 55 dB
                between them; the compose and fast outputs bit-identical.
+6. stream   -- the streamed, resumed and batched paths on phase 4's noisy
+               volume (sigma 2, D 8, wrap unless named), each bit-identical
+               to the in-memory CLI output of the same path and with the
+               launch counts its windows imply: the in-memory references
+               (solve, compose, --boundary mean); stream (--stream, the auto
+               slab: one window a pass at these sizes; its host RSS rise
+               beside the in-memory solve's); stream_slabs
+               (--slab_size S = 3*size//10: 4 windows a pass with a shifted
+               tail), twice; stream_compose; stream_mean; denoise_streamed
+               with its overlap off and on, in turns; resume (a
+               --checkpoint_dir run stopped after pass 1's checkpoint, the
+               same command resuming at pass 2 and stopped in the write,
+               then the finished volume written with no launch); batch
+               (denoise_many of three volumes, window 2, to_host off and
+               on, against single denoises).  Each line gives the windows,
+               the wall time beside the in-memory one and the peak device
+               memory against core/memory.py's model.  Then memory: the
+               peaks of in-memory solve denoises at 256^3, 512^3,
+               384x512x512 and 128x1024x1024 against the model, and a
+               denoise with the budget forced small (>= 3 slabs a pass),
+               bit-identical to the whole axis.
+
+    python3 chip_smoke.py --stream_shape 512x1024x1024   # phases 1, 2, 6
 
 The last lines are the card's nvidia-smi line, a JSON object of the kernels
-and, last, ``{"ok": true, "device": {...}}``.
+(not with --stream_shape) and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -710,12 +733,17 @@ def packed_forms(r, t, banded_flow, umuf_operands) -> dict:
     return res
 
 
+def nonzero(launches: dict) -> dict:
+    """The kernel forms a run launched, for printing."""
+    return {k: n for k, n in launches.items() if n}
+
+
 def no_launches() -> dict:
     from flowdenoising_tpu_torch.ops import cuda as K
     return dict.fromkeys(K.LAUNCHES, 0)
 
 
-def expected_launches(shape, cfg) -> dict:
+def expected_launches(shape, cfg, windows=(1, 1, 1), passes=(0, 1, 2)) -> dict:
     """Launches the tap and level loops imply for one denoise of ``shape``,
     per kernel form: solve mode solves every tap pair and warps with
     K-sample; compose mode solves the adjacent pairs once per direction
@@ -725,7 +753,9 @@ def expected_launches(shape, cfg) -> dict:
     (``_packed_at_level``: --precision bfloat16, outside the tiny route).
     K-compose-run runs packed (compose_run_bf16) with --precision bfloat16.
     A denoise never launches the per-tap K-compose, K-um or K-uf (its
-    solves run fused in K-umuf)."""
+    solves run fused in K-umuf).  Pass i runs once per window,
+    ``windows[i]`` times (slabs, or a stream's windows with the recomputed
+    tail); only the passes in ``passes`` run (a resumed run)."""
     from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
     from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf
     from flowdenoising_tpu_torch.ops.farneback import _packed_at_level
@@ -741,19 +771,21 @@ def expected_launches(shape, cfg) -> dict:
     packed = f.precision == "bfloat16" and f.max_displacement is not None
     compose = "compose_run_bf16" if packed else "compose_run"
     n = no_launches()
-    for taps, (h, w) in zip(get_gaussian_kernels(cfg.sigma), planes):
+    for i, (taps, (h, w)) in enumerate(zip(get_gaussian_kernels(cfg.sigma), planes)):
+        if i not in passes:
+            continue
         n_taps = len(taps) - 1
         sizes = pyramid_sizes(h, w, f.clamped_levels(h, w), f.pyr_scale)
         solves = ((1 if f.symmetric_adjacent else 2) if f.tap_mode == "compose"
-                  else n_taps)
+                  else n_taps) * windows[i]
         for k, (hk, wk) in enumerate(sizes):
             form = "umuf_bf16" if _packed_at_level(adj, k, hk, wk) else "umuf"
             n[form] += solves * len(plan_umuf(hk, wk, f.winsize,
                                               f.iterations).launches)
         if f.tap_mode == "compose":
-            n[compose] += 1 if n_taps else 0
+            n[compose] += windows[i] if n_taps else 0
         else:
-            n["sample"] += n_taps
+            n["sample"] += n_taps * windows[i]
     return n
 
 
@@ -862,16 +894,17 @@ V2_FALLBACK = ("solve_bf16",)
 SPLIT = ("solve", "compose", "solve_bf16", "fast")
 
 
-def phase_main(dev, size: int, seed: int) -> dict:
+def phase_main(dev, size: int, seed: int) -> tuple[dict, dict]:
     """Every path of PATHS through the CLI, then warm; then the auto_v2
     path.  Returns each path's launch counts, and the -v 2 reconstruction's
-    as "stage_report"."""
+    as "stage_report", and each path's CLI output."""
     from flowdenoising_tpu_torch import cli
     from flowdenoising_tpu_torch.config import FilterConfig, FlowConfig
+    from flowdenoising_tpu_torch.core import memory
     from flowdenoising_tpu_torch.core.noise import resolve_auto_presmooth
     from flowdenoising_tpu_torch.core.pipeline import denoise
     from flowdenoising_tpu_torch.io.mrc import read_mrc, write_mrc
-    from flowdenoising_tpu_torch.ops import cuda as K
+    from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
     from flowdenoising_tpu_torch.utils import trace_report
 
     clean = blob_volume(size, size, size, seed)
@@ -936,6 +969,11 @@ def phase_main(dev, size: int, seed: int) -> dict:
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated()
+            # the model's peak of this whole-axis denoise, the input held
+            model = memory.denoise_peak_bytes(
+                cfg, clean.shape, [len(k) // 2 for k in get_gaussian_kernels(cfg.sigma)])
+            require(peak <= model, f"{name}: peak device memory {peak} B above "
+                    f"the memory model's {model} B")
             rerun = float(np.abs(warm.cpu().numpy() - out).max())
             # the kernels are deterministic, and the CLI resolves the same
             # config (presmooth included) from the same volume
@@ -952,7 +990,8 @@ def phase_main(dev, size: int, seed: int) -> dict:
                   f"{p_out:.2f} dB{against}; CLI run {cold:.2f} s (cold, incl. I/O"
                   f"{', -v 2 profiling and reconstruction' if name in V2_FALLBACK else ''}); "
                   f"warm denoise {secs:.3f} s = {clean.size / secs / 1e6:.2f} "
-                  f"Mvoxel/s; peak device memory {peak / 2**30:.2f} GiB; warm vs CLI "
+                  f"Mvoxel/s; peak device memory {peak / 2**30:.3f} GiB (model "
+                  f"{model / 2**30:.3f}); warm vs CLI "
                   f"output max abs diff {rerun:.3g}", flush=True)
             if name in SPLIT:
                 busy, wall, fams = device_split(lambda: denoise(vol, cfg))
@@ -967,7 +1006,7 @@ def phase_main(dev, size: int, seed: int) -> dict:
         noisy, src = noisy_input(40.0)
         counts["auto_v2"], counts["stage_report"] = path_auto_v2(
             dev, Path(tmp), src, clean, noisy)
-    return counts
+    return counts, outputs
 
 
 def cli_v2(args: list, report_hooks: dict) -> tuple[int, float, dict]:
@@ -1147,20 +1186,394 @@ def phase_e2e(dev, seed: int) -> None:
               f"{float(np.abs(on_card - on_cpu).max()):.3g}", flush=True)
 
 
+def host_rss() -> int | None:
+    """This process's resident host memory in bytes (/proc/self/statm),
+    None where the system does not say."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, IndexError, ValueError):
+        return None
+
+
+class RssPeak:
+    """The peak of ``host_rss`` above its value at entry, sampled every
+    10 ms by a thread while the block runs (``rise``: bytes, or None)."""
+
+    def __enter__(self):
+        import threading
+        self.base = host_rss()
+        self.top = self.base
+        self.stop = threading.Event()
+
+        def sample():
+            while not self.stop.wait(0.01):
+                now = host_rss()
+                if now is not None and self.top is not None:
+                    self.top = max(self.top, now)
+
+        self.thread = threading.Thread(target=sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=5)
+        self.rise = None if self.base is None else self.top - self.base
+        return False
+
+    def text(self) -> str:
+        return ("not measured" if self.rise is None
+                else f"{self.rise / 2**30:.3f} GiB")
+
+
+class Interrupted(Exception):
+    """Raised by a hook to stop a CLI run part-way, as a crash would."""
+
+
+def cli_run(args: list, hooks: dict) -> tuple[float, dict, int]:
+    """``cli.main(args)`` in this process with ``hooks`` ({(module, name):
+    replacement}) in place and the launch counts and the device memory peak
+    reset just before it: (seconds, launches, peak device bytes).  A run a
+    hook interrupts returns what it launched before."""
+    from flowdenoising_tpu_torch import cli
+    from flowdenoising_tpu_torch.ops import cuda as K
+
+    saved = {key: getattr(*key) for key in hooks}
+    for (module, name), fn in hooks.items():
+        setattr(module, name, fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        require(cli.main(args) == 0, f"cli.main {args} failed")
+    except Interrupted:
+        pass
+    finally:
+        for (module, name), fn in saved.items():
+            setattr(module, name, fn)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, dict(K.LAUNCHES), torch.cuda.max_memory_allocated()
+
+
+def phase_stream(dev, shape, seed: int, main_outputs=None) -> None:
+    """6 stream: the streamed CLI (--stream), the checkpoint resume and
+    denoise_many on the seeded blob volume of ``shape`` with noise std 40,
+    sigma 2, D 8, wrap, each bit-identical to the in-memory output of the
+    same path, with the launch counts its windows imply; then the device
+    memory peaks against core/memory.py's model, and an in-memory denoise
+    that the model, given a small budget, splits into >= 3 slabs a pass."""
+    from flowdenoising_tpu_torch.config import Boundary, FilterConfig, FlowConfig
+    from flowdenoising_tpu_torch.core import memory
+    from flowdenoising_tpu_torch.core.pipeline import denoise, denoise_many
+    from flowdenoising_tpu_torch.core.stream import denoise_streamed
+    from flowdenoising_tpu_torch.io import volume as volume_io
+    from flowdenoising_tpu_torch.io.mrc import read_mrc, write_mrc
+    from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
+    from flowdenoising_tpu_torch.ops import cuda as K
+    from flowdenoising_tpu_torch.utils import checkpoint
+
+    tag = "x".join(map(str, shape))
+    clean = blob_volume(*shape, seed)
+    # the noisy volume of phase 4 (noise seed + 1), and two more for the batch
+    vols = [clean + np.random.default_rng(s).normal(0.0, 40.0, shape).astype(np.float32)
+            for s in (seed + 1, seed + 11, seed + 21)]
+    noisy = vols[0]
+    del clean
+    ks2s = [len(k) // 2 for k in get_gaussian_kernels((2.0, 2.0, 2.0))]
+    passes = [(shape[0], shape[1], shape[2]), (shape[1], shape[0], shape[2]),
+              (shape[2], shape[0], shape[1])]
+    slab = 3 * min(shape) // 10
+    slab_windows = tuple(-(-n // slab) for n, _, _ in passes)
+    cfgs = {"solve": FilterConfig(flow=FlowConfig()),
+            "compose": FilterConfig(flow=FlowConfig(tap_mode="compose")),
+            "mean": FilterConfig(boundary=Boundary.MEAN, flow=FlowConfig())}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "noisy.mrc"
+        write_mrc(src, noisy)
+        base = ["-i", str(src), "-s", "2", "2", "2", "--max_displacement", "8"]
+        path_flags = {"solve": [], "compose": ["--tap_flow", "compose"],
+                      "mean": ["--boundary", "mean"]}
+
+        def output(name):
+            """A run's output, read and its file removed (disk space)."""
+            path = Path(tmp) / f"{name}.mrc"
+            data, _ = read_mrc(path)
+            path.unlink()
+            return np.asarray(data)
+
+        def same(name, out, ref, what):
+            require(out.shape == ref.shape and bool(np.isfinite(out).all()),
+                    f"{name}: output shape {out.shape} or non-finite values")
+            diff = float(np.abs(out - ref).max())
+            require(np.array_equal(out, ref), f"{name}: not bit-identical to "
+                    f"{what} (max abs diff {diff})")
+
+        # the in-memory references
+        ref, walls = {}, {}
+        for name in ("solve", "compose", "mean"):
+            with RssPeak() as rss:
+                secs, launches, peak = cli_run(
+                    [*base, *path_flags[name], "-o", str(Path(tmp) / f"mem_{name}.mrc")],
+                    {})
+            want = expected_launches(shape, cfgs[name])
+            require(launches == want, f"in-memory {name}: launches {launches}, "
+                    f"expected {want}")
+            ref[name] = output(f"mem_{name}")
+            walls[name] = secs
+            if name == "solve":
+                mem_peak, mem_rss = peak, rss
+        for name in ("solve", "compose"):
+            if main_outputs is not None:
+                same(name, ref[name], main_outputs[name], "phase 4's CLI output")
+        print(f"[6 stream] {tag} in-memory CLI references: solve {walls['solve']:.2f} s "
+              f"(peak device memory {mem_peak / 2**30:.3f} GiB, host RSS rise "
+              f"{mem_rss.text()}), compose {walls['compose']:.2f} s, mean "
+              f"{walls['mean']:.2f} s; launches as expected", flush=True)
+
+        # stream, auto slab: the model gives the whole axis at these sizes
+        budget = memory.device_budget(dev)
+        auto = tuple(-(-n // (memory.pass_slab(cfgs["solve"], n, h, w, k, budget,
+                                              streamed=True) or n))
+                     for (n, h, w), k in zip(passes, ks2s))
+        with RssPeak() as rss:
+            secs, launches, peak = cli_run(
+                [*base, "--stream", "-o", str(Path(tmp) / "stream.mrc")], {})
+        want = expected_launches(shape, cfgs["solve"], auto)
+        require(launches == want, f"stream: launches {launches}, expected {want} "
+                f"(windows {auto})")
+        same("stream", output("stream"), ref["solve"], "the in-memory CLI output")
+        model = max(memory.window_peak_bytes(cfgs["solve"], n, h, w, k, None,
+                                             streamed=True)
+                    for (n, h, w), k in zip(passes, ks2s))
+        require(peak <= model, f"stream: peak {peak} B above the model's {model} B")
+        import resource
+        maxrss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        print(f"[6 stream] {tag} stream (--stream, auto slab): windows a pass "
+              f"{auto}; bit-identical to the in-memory output; launches "
+              f"{nonzero(launches)} as expected; CLI {secs:.2f} s against in-memory "
+              f"{walls['solve']:.2f} s; peak device memory {peak / 2**30:.3f} GiB "
+              f"(model {model / 2**30:.3f}); host RSS rise {rss.text()} (in-memory "
+              f"{mem_rss.text()}; this process's peak RSS so far, getrusage: "
+              f"{maxrss / 2**30:.3f} GiB)", flush=True)
+
+        # streams with slab S: 4 windows a pass at a cube, a shifted tail
+        def streamed(run, name, extra):
+            dst = Path(tmp) / f"{run}.mrc"
+            secs, launches, peak = cli_run(
+                [*base, *path_flags[name], "--stream", "--slab_size", str(slab),
+                 *extra, "-o", str(dst)], {})
+            want = expected_launches(shape, cfgs[name], slab_windows)
+            require(launches == want, f"{run}: launches {launches}, expected {want}")
+            same(run, output(run), ref[name], f"the in-memory {name} CLI output")
+            model = max(memory.window_peak_bytes(cfgs[name], n, h, w, k, slab,
+                                                 streamed=True)
+                        for (n, h, w), k in zip(passes, ks2s))
+            require(peak <= model, f"{run}: peak {peak} B above the model's {model} B")
+            print(f"[6 stream] {tag} {run} (--stream --slab_size {slab}"
+                  f"{' ' + ' '.join(path_flags[name]) if path_flags[name] else ''}): "
+                  f"windows a pass {slab_windows}; bit-identical to the in-memory "
+                  f"output; launches {nonzero(launches)} as expected; CLI {secs:.2f} s against "
+                  f"in-memory {walls[name]:.2f} s; peak device memory "
+                  f"{peak / 2**30:.3f} GiB (model {model / 2**30:.3f})", flush=True)
+
+        streamed("stream_slabs", "solve", [])
+        streamed("stream_slabs_again", "solve", [])
+        streamed("stream_compose", "compose", [])
+        streamed("stream_mean", "mean", [])
+
+        # the overlap: the library stream with it off and on, in turns
+        mapped = volume_io.read_volume(src, memory_map=True)
+        times = {False: [], True: []}
+        for overlap in (False, True, True, False):
+            res = []
+            times[overlap].append(wall_s(lambda: res.append(denoise_streamed(
+                mapped, cfgs["solve"], slab_size=slab, tmp_dir=tmp,
+                overlap=overlap, device=dev))))
+            same(f"stream overlap={overlap}", res[0], ref["solve"],
+                 "the in-memory CLI output")
+            del res
+        del mapped
+        print(f"[6 stream] {tag} denoise_streamed (S {slab}, solve) with the overlap "
+              f"off: {', '.join(f'{t:.3f}' for t in times[False])} s; on: "
+              f"{', '.join(f'{t:.3f}' for t in times[True])} s (in turns); "
+              "bit-identical to the in-memory output", flush=True)
+
+        # resume: stopped after pass 1's checkpoint, then after pass 2's
+        # (the output's write fails), then the finished volume
+        ck = Path(tmp) / "ck"
+        dst = Path(tmp) / "resume.mrc"
+        args = [*base, "--checkpoint_dir", str(ck), "-o", str(dst)]
+        save_pass = checkpoint.CheckpointManager.save_pass
+
+        def stop_after_pass_1(self, i, vol):
+            save_pass(self, i, vol)
+            if i == 1:
+                raise Interrupted
+
+        def failed_write(*a, **kw):
+            raise Interrupted
+
+        runs = []
+        for hooks in ({(checkpoint.CheckpointManager, "save_pass"): stop_after_pass_1},
+                      {(volume_io, "write_volume"): failed_write}, {}):
+            runs.append(cli_run(args, hooks))
+        cfg = cfgs["solve"]
+        for (secs, launches, _), want, what in zip(
+                runs, (expected_launches(shape, cfg, passes=(0, 1)),
+                       expected_launches(shape, cfg, passes=(2,)), no_launches()),
+                ("passes 0-1, stopped", "resumed at pass 2", "finished volume")):
+            require(launches == want, f"resume ({what}): launches {launches}, "
+                    f"expected {want}")
+        same("resume", output("resume"), ref["solve"], "the in-memory CLI output")
+        require(not any(ck.iterdir()), "resume: the checkpoint was not cleared")
+        print(f"[6 stream] {tag} resume (--checkpoint_dir): run 1 stopped after "
+              f"pass 1's checkpoint ({runs[0][0]:.2f} s, {nonzero(runs[0][1])}), run 2 resumed "
+              f"at pass 2 and stopped in the write ({runs[1][0]:.2f} s, {nonzero(runs[1][1])}: "
+              f"one pass), run 3 wrote the finished volume ({runs[2][0]:.2f} s, "
+              "no launch); bit-identical to the in-memory output; checkpoint "
+              "cleared", flush=True)
+
+        # batch: three volumes (noise under three seeds), window 2
+        singles, single_s = [], []
+        for v in vols:
+            t = torch.from_numpy(v).to(dev)
+            single_s.append(wall_s(lambda: singles.append(denoise(t, cfg).cpu().numpy())))
+            del t
+        same("batch reference", singles[0], ref["solve"], "the in-memory CLI output")
+        for to_host in (False, True):
+            res = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launches()
+            secs = wall_s(lambda: res.extend(denoise_many(
+                iter(vols), cfg, window=2, to_host=to_host, device=dev)))
+            launches = dict(K.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            want = {k: 3 * n for k, n in expected_launches(shape, cfg).items()}
+            require(launches == want, f"batch to_host={to_host}: launches {launches}, "
+                    f"expected {want}")
+            for j, (out, single) in enumerate(zip(res, singles)):
+                out = out if to_host else out.cpu().numpy()
+                require(isinstance(res[j], np.ndarray) == to_host,
+                        f"batch to_host={to_host}: result type {type(res[j])}")
+                same(f"batch to_host={to_host} volume {j}", out, single,
+                     "a single denoise")
+            del res
+            print(f"[6 stream] {tag} batch (denoise_many, 3 volumes, window 2, "
+                  f"to_host={to_host}): each bit-identical to a single denoise (the "
+                  f"first to the in-memory CLI output); launches {nonzero(launches)} = 3 "
+                  f"denoises; {secs / 3:.3f} s a volume against a warm single denoise "
+                  f"{min(single_s):.3f} s; peak device memory {peak / 2**30:.3f} GiB",
+                  flush=True)
+        del singles, vols[1:]
+
+    phase_memory(dev, cfgs["solve"], noisy, ks2s, ref["solve"], seed)
+
+
+# the in-memory denoises whose device memory peaks are held to the model:
+# PERF.md's two sizes, and two other aspect ratios
+MEMORY_SHAPES = ((256, 256, 256), (512, 512, 512), (384, 512, 512),
+                 (128, 1024, 1024))
+
+
+def phase_memory(dev, cfg, noisy, ks2s, ref, seed: int) -> None:
+    """Peaks of in-memory denoises (solve, D 8, the input held) against the
+    memory model at the sizes of PERF.md and other aspect ratios; then a
+    denoise of ``noisy`` with the budget forced small, so the model splits
+    each pass into >= 3 slabs, bit-identical to the whole axis (``ref``)."""
+    from flowdenoising_tpu_torch.core import memory
+    from flowdenoising_tpu_torch.core.pipeline import denoise
+    from flowdenoising_tpu_torch.ops import cuda as K
+
+    lines = []
+    for vshape in MEMORY_SHAPES:
+        vol = torch.from_numpy(blob_volume(*vshape, seed + 5)).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        denoise(vol, cfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        model = memory.denoise_peak_bytes(cfg, vshape, ks2s)
+        require(peak <= model, f"memory {vshape}: peak {peak} B above the "
+                f"model's {model} B")
+        lines.append(f"{'x'.join(map(str, vshape))} {peak / 2**30:.3f} "
+                     f"(model {model / 2**30:.3f}, {100 * peak / model:.1f}%)")
+        del vol
+    print(f"[6 stream] memory: in-memory solve denoise peaks, GiB: "
+          f"{'; '.join(lines)}; none above the model", flush=True)
+
+    shape = noisy.shape
+    passes = [(shape[0], shape[1], shape[2]), (shape[1], shape[0], shape[2]),
+              (shape[2], shape[0], shape[1])]
+    # every pass's window at a third of its axis or less
+    budget = min(memory.window_peak_bytes(cfg, n, h, w, k, n // 3)
+                 for (n, h, w), k in zip(passes, ks2s))
+    slabs = [memory.pass_slab(cfg, n, h, w, k, budget)
+             for (n, h, w), k in zip(passes, ks2s)]
+    windows = tuple(-(-n // s) for (n, _, _), s in zip(passes, slabs))
+    require(min(windows) >= 3, f"forced budget: windows {windows}")
+    vol = torch.from_numpy(noisy).to(dev)
+    out = []
+    saved = memory.device_budget
+    memory.device_budget = lambda device: budget
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        secs = wall_s(lambda: out.append(denoise(vol, cfg)))
+        launches = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        memory.device_budget = saved
+    want = expected_launches(shape, cfg, windows)
+    require(launches == want, f"forced budget: launches {launches}, expected {want}")
+    got = out[0].cpu().numpy()
+    require(np.array_equal(got, ref), "forced budget: the slabbed denoise is not "
+            f"bit-identical to the whole axis (max abs diff "
+            f"{float(np.abs(got - ref).max())})")
+    model = memory.denoise_peak_bytes(cfg, shape, ks2s, slabs)
+    require(peak <= model, f"forced budget: peak {peak} B above the model's {model} B")
+    del vol, out
+    print(f"[6 stream] memory: in-memory denoise of {'x'.join(map(str, shape))} with "
+          f"the budget forced to {budget / 2**30:.3f} GiB: slabs {slabs}, windows a "
+          f"pass {windows}; bit-identical to the whole axis; launches {nonzero(launches)} as "
+          f"expected; {secs:.3f} s; peak device memory {peak / 2**30:.3f} GiB (model "
+          f"{model / 2**30:.3f})", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--size", type=int, default=256,
                     help="edge of the cubic main-path volume")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--stream_shape", type=str, default=None,
+                    help="ZxYxX: run only phases 1, 2 and 6 at this shape")
     args = ap.parse_args()
 
     card = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
+    if args.stream_shape:
+        shape = tuple(int(v) for v in args.stream_shape.lower().split("x"))
+        require(len(shape) == 3, f"--stream_shape {args.stream_shape}: expected ZxYxX")
+        phase_stream(dev, shape, args.seed)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     kern = phase_kernels(dev, args.seed)
     torch.cuda.empty_cache()
-    counts = phase_main(dev, args.size, args.seed)
+    counts, outputs = phase_main(dev, args.size, args.seed)
     phase_e2e(dev, args.seed)
+    torch.cuda.empty_cache()
+    phase_stream(dev, (args.size,) * 3, args.seed, outputs)
+    del outputs
 
     # each kernel form's launches from the path that defines it: K-umuf and
     # K-sample from solve mode, K-compose-run (and the per-tap K-compose,

@@ -7,7 +7,10 @@ Usage:
 The port runs the flow denoise in both tap modes (``--tap_flow solve``,
 the default, and ``--tap_flow compose`` with ``--symmetric_adjacent``) and
 ``-n``, in float32 or in the bf16 fast mode (``--dtype bfloat16
---precision bfloat16``), on one device, in memory.  The displacement bound is
+--precision bfloat16``), on one device, in memory (each pass in windows
+sized for the card where the whole axis does not fit), or streamed from
+disk (``--stream``), with per-pass checkpoints (``--checkpoint_dir``) that
+a rerun resumes from.  The displacement bound is
 probed from the volume by default (``--max_displacement auto``), and flows
 may be estimated from a presmoothed copy (``--flow_presmooth``).  ``-v 2``
 logs the per-stage device time: measured from a ``torch.profiler`` trace
@@ -24,7 +27,9 @@ import argparse
 import contextlib
 import logging
 import os
+import shutil
 import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -87,7 +92,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Boundary mode along the filtered axis (reference main CLI: wrap; "
                         "sequential variant: mean)")
     p.add_argument("--slab_size", type=int, default=None,
-                   help="Process each pass in slabs of this many output slices")
+                   help="Process each pass in slabs of this many output "
+                        "slices (default: the whole axis where the card's "
+                        "memory model allows, else the largest slab that "
+                        "fits)")
     p.add_argument("--devices", type=int, default=None,
                    help="Number of devices (not yet ported: one device only, ROADMAP A11)")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
@@ -123,9 +131,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "negated forward ones (one adjacent solve per pass "
                         "instead of two)")
     p.add_argument("--checkpoint_dir", type=str, default=None,
-                   help="Per-pass checkpoints (not yet ported, ROADMAP A10)")
+                   help="Persist the volume after each completed axis pass here and "
+                        "resume from the last completed pass on restart")
     p.add_argument("--stream", action="store_true",
-                   help="Disk-streamed passes (not yet ported, ROADMAP A10)")
+                   help="Disk-streamed passes for volumes larger than host "
+                        "RAM: the volume stays memory-mapped on disk and "
+                        "each pass streams axis slabs through the device "
+                        "(scratch memmaps ping-pong between passes; "
+                        "bitwise-identical to the in-memory pipeline)")
     p.add_argument("--tiff_quantize", action="store_true",
                    help="Quantize TIFF output like the reference sequential "
                         "variant: uint8 if max < 256 else uint16")
@@ -147,9 +160,6 @@ def _refuse_unported(args) -> None:
             and args.max_displacement == 0):
         raise SystemExit("--dtype bfloat16 with --max_displacement 0 (no "
                          "bound) is not yet ported (ROADMAP A9)")
-    if args.stream or args.checkpoint_dir:
-        raise SystemExit("--stream and --checkpoint_dir are not yet ported "
-                         "(ROADMAP A10)")
     if (args.devices not in (None, 1) or args.coordinator
             or args.num_hosts != 1 or args.host_id is not None):
         raise SystemExit("--devices, --coordinator, --num_hosts and "
@@ -232,7 +242,7 @@ def main(argv=None) -> int:
         logging.info("-p/--use_GPU/--use_threads accepted for reference "
                      f"compatibility; the work runs on {device}")
 
-    from flowdenoising_tpu_torch.core.pipeline import denoise
+    from flowdenoising_tpu_torch.core.pipeline import denoise, volume_mean
     from flowdenoising_tpu_torch.io.volume import (
         is_mrc_input, read_volume, write_volume)
 
@@ -251,7 +261,13 @@ def main(argv=None) -> int:
             voxel_size = None
 
     with prof.phase("read"):
-        vol = read_volume(args.input, memory_map=args.memory_map, as_f32=True)
+        # --stream keeps the volume memory-mapped in its stored dtype; the
+        # windows are converted as they are read
+        if args.stream:
+            vol = read_volume(args.input, memory_map=True)
+        else:
+            vol = read_volume(args.input, memory_map=args.memory_map,
+                              as_f32=True)
     log_volume_stats(str(args.input), vol)
 
     if auto_disp and cfg.use_flow:
@@ -269,9 +285,25 @@ def main(argv=None) -> int:
                  + (f" ({torch.cuda.get_device_name(device)})"
                     if device.type == "cuda" else ""))
 
-    from flowdenoising_tpu_torch.utils.progress import ProgressReporter
     shape = np.shape(vol)
+    ckpt, start_pass, mean_val = None, 0, None
+    if cfg.boundary is Boundary.MEAN and not args.stream:
+        mean_val = volume_mean(vol)
+    if args.checkpoint_dir and args.stream:
+        logging.warning("--checkpoint_dir is ignored with --stream (a "
+                        "streamed run keeps no checkpoint)")
+        args.checkpoint_dir = None
+    if args.checkpoint_dir:
+        from flowdenoising_tpu_torch.utils.checkpoint import CheckpointManager
+        ckpt = CheckpointManager(args.checkpoint_dir, cfg, vol, mean=mean_val)
+        resumed = ckpt.load_latest()
+        if resumed is not None:
+            start_pass, vol, mean_val = resumed
+
+    from flowdenoising_tpu_torch.utils.progress import ProgressReporter
+    # one unit per output slice per pass, the completed passes done
     progress = ProgressReporter(total_units=int(sum(shape)))
+    progress.advance(sum(shape[:start_pass]))
 
     # -v 2: profile the actual run for the measured per-stage report; the
     # profiler's stop and the trace export are a phase of their own, so the
@@ -281,19 +313,50 @@ def main(argv=None) -> int:
         from flowdenoising_tpu_torch.utils.trace_report import traced_run
         trace_ctx = traced_run(lambda: prof.phase("trace_export"))
 
-    with trace_ctx as trace_state:
-        with prof.phase("filter"), progress:
-            def on_pass(i, _v):
-                progress.advance(shape[i])
+    # --stream: the scratch memmaps and the result live here until the
+    # output is written, and go even when the run fails
+    stream_dir = tempfile.mkdtemp(prefix="fdt_stream_") if args.stream else None
+    try:
+        with trace_ctx as trace_state:
+            with prof.phase("filter"), progress:
+                if args.stream:
+                    from flowdenoising_tpu_torch.core.stream import (
+                        denoise_streamed)
+                    filtered = np.memmap(
+                        os.path.join(stream_dir, "denoised.f32"),
+                        dtype=np.float32, mode="w+", shape=shape)
+                    state = {"done": 0}
 
-            filtered = denoise(vol, cfg, kernels=kernels, on_pass=on_pass,
-                               device=device).cpu().numpy()
+                    def stream_progress(done, _total):
+                        progress.advance(done - state["done"])
+                        state["done"] = done
 
-    log_volume_stats(str(args.output), filtered)
+                    denoise_streamed(vol, cfg, kernels, tmp_dir=stream_dir,
+                                     out=filtered, slab_size=args.slab_size,
+                                     progress=stream_progress, device=device)
+                else:
+                    def on_pass(i, v):
+                        progress.advance(shape[i])
+                        if ckpt is not None:
+                            ckpt.save_pass(i, v)
 
-    with prof.phase("write"):
-        write_volume(args.output, filtered, quantize=args.tiff_quantize,
-                     voxel_size=voxel_size)
+                    filtered = denoise(
+                        vol, cfg, kernels=kernels, start_pass=start_pass,
+                        mean_val=mean_val, on_pass=on_pass,
+                        device=device).cpu().numpy()
+
+        log_volume_stats(str(args.output), filtered)
+
+        with prof.phase("write"):
+            write_volume(args.output, filtered, quantize=args.tiff_quantize,
+                         voxel_size=voxel_size)
+        # only once the output is written: a run that fails before can
+        # restart from the finished volume
+        if ckpt is not None:
+            ckpt.clear()
+    finally:
+        if stream_dir is not None:
+            shutil.rmtree(stream_dir, ignore_errors=True)
     prof.report()
 
     if verbosity >= 2:

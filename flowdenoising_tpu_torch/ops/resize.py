@@ -1,4 +1,4 @@
-"""Separable image resizing as two dense matrix products.
+"""Separable image resizing as two dense matrix products per plane.
 
 Counterpart of ``flowdenoising_tpu/ops/resize.py``.  Every resample of the
 Farneback pyramid (OpenCV INTER_LINEAR for image and flow, INTER_AREA for
@@ -93,13 +93,23 @@ def _apply_separable(img: torch.Tensor, wr: np.ndarray,
                      wc: np.ndarray) -> torch.Tensor:
     """img: (..., H, W); wr: (H', H); wc: (W', W) -> (..., H', W'), rows
     first, then columns, each product in full float32 and rounded to img's
-    dtype."""
+    dtype.
+
+    Each plane is one product of a batched multiply (``torch.bmm``) whose
+    shapes are the plane's, never the batch's: folding the batch into a
+    matrix dimension let the library pick another algorithm, with another
+    order of the sums, for another number of planes, so a window's planes
+    came out other than the whole axis's."""
     dtype = img.dtype
+    lead = tuple(img.shape[:-2])
+    x = img.reshape((-1,) + tuple(img.shape[-2:])).float()
+    b = x.shape[0]
     wr_t = torch.as_tensor(wr, dtype=dtype, device=img.device).float()
     wc_t = torch.as_tensor(wc, dtype=dtype, device=img.device).float()
     with _full_float32():
-        out = torch.einsum("hH,...HW->...hW", wr_t, img.float()).to(dtype)
-        return torch.einsum("wW,...hW->...hw", wc_t, out.float()).to(dtype)
+        out = torch.bmm(wr_t.expand(b, -1, -1), x).to(dtype)
+        out = torch.bmm(out.float(), wc_t.t().expand(b, -1, -1)).to(dtype)
+    return out.reshape(lead + tuple(out.shape[-2:]))
 
 
 def resize_linear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

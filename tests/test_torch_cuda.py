@@ -357,3 +357,59 @@ def test_denoise_card_matches_cpu(dev, tap_mode, presmooth, bf16):
     mse = np.mean((on_card.astype(np.float64) - on_cpu) ** 2)
     peak = on_cpu.max() - on_cpu.min()
     assert 10 * np.log10(peak * peak / max(mse, 1e-30)) >= 55
+
+
+def _blob_like(shape, seed):
+    r = np.random.default_rng(seed)
+    z, y, x = (np.arange(s).reshape([-1 if a == i else 1 for a in range(3)])
+               for i, s in enumerate(shape))
+    return (100 * np.sin(0.3 * (x + 0.5 * z)) * np.cos(0.25 * (y - 0.3 * z))
+            + r.normal(0, 10, shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("boundary,overlap", [
+    ("wrap", True), ("mean", True), ("replicate", False)])
+def test_streamed_solve_equals_whole_axis(dev, tmp_path, boundary, overlap):
+    # windows of 7 planes (a shifted tail on every axis) through the side
+    # stream and pinned buffers, against the in-memory whole axis
+    from flowdenoising_tpu_torch.config import Boundary
+    from flowdenoising_tpu_torch.core.stream import denoise_streamed
+    vol = _blob_like((20, 40, 36), 3)
+    cfg = FilterConfig(sigma=(1.0, 1.0, 1.0), boundary=Boundary(boundary),
+                       flow=FlowConfig(levels=2, max_displacement=4))
+    whole = denoise(vol, cfg).cpu().numpy()
+    before = dict(K.LAUNCHES)
+    out = denoise_streamed(vol, cfg, slab_size=7, tmp_dir=str(tmp_path),
+                           overlap=overlap)
+    windows = sum(-(-n // 7) for n in vol.shape)
+    assert K.LAUNCHES["sample"] - before["sample"] == 8 * windows
+    np.testing.assert_array_equal(out, whole)
+    assert list(tmp_path.iterdir()) == []
+
+
+@pytest.mark.parametrize("to_host", [True, False])
+def test_denoise_many_on_the_card(dev, to_host):
+    from flowdenoising_tpu_torch.core.pipeline import denoise_many
+    cfg = FilterConfig(sigma=(1.0, 1.0, 1.0),
+                       flow=FlowConfig(levels=2, max_displacement=4))
+    vols = [_blob_like((12, 40, 36), s) for s in range(4)]
+    held = torch.from_numpy(vols[1]).to(dev)
+    outs = denoise_many([vols[0], held, *vols[2:]], cfg, window=2,
+                        to_host=to_host)
+    assert torch.equal(held.cpu(), torch.from_numpy(vols[1]))
+    for v, out in zip(vols, outs):
+        assert isinstance(out, np.ndarray) == to_host
+        got = out if to_host else out.cpu().numpy()
+        np.testing.assert_array_equal(got, denoise(v, cfg).cpu().numpy())
+
+
+def test_resize_gives_a_plane_the_same_bits_in_any_batch(dev):
+    # the level-0 flow upsampling of a 512x1024 pass: with the batch folded
+    # into a matrix dimension, the planes at the end of 2048 came out other
+    # than in a window of them
+    r = np.random.default_rng(5)
+    flow = _t(r.normal(size=(1024, 2, 256, 512)) * 2, dev)
+    whole = resize_linear(flow, (512, 1024))
+    for a in (0, 871):
+        torch.testing.assert_close(resize_linear(flow[a:a + 153], (512, 1024)),
+                                   whole[a:a + 153], atol=0, rtol=0)

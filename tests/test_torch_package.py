@@ -69,8 +69,6 @@ def test_default_device_cuda_raises_without_cuda(mrc_in, tmp_path):
     (["--max_displacement", "0", "--dtype", "bfloat16"], "A9"),
     (["--max_displacement", "0", "--dtype", "bfloat16", "--tap_flow",
       "compose"], "A9"),
-    (["--stream"], "A10"),
-    (["--checkpoint_dir", "ck"], "A10"),
     (["--devices", "2"], "A11"),
     (["--coordinator", "localhost:1234"], "A11"),
 ])
