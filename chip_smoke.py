@@ -79,10 +79,27 @@ Phases, one or more lines of output each (any failure exits non-zero):
                denoise with the budget forced small (>= 3 slabs a pass),
                bit-identical to the whole axis.
 
+7. sharded -- ``denoise_sharded`` over a mesh of 4 shards of the one card
+               (``make_mesh(devices=[cuda:0] * 4)``, the shards run in
+               turn) on phase 4's noisy volume: solve, compose, symmetric
+               compose, solve_bf16 and fast, the MEAN and REPLICATE
+               boundaries, an uneven (size-2)x(size)x(size-6) volume and a
+               forced per-shard slab, each bit-identical to the
+               single-device ``denoise`` with the launches its shard
+               windows imply; the warm wall of 4 shards beside one device,
+               in turns; the sharded stream (2 shards, S = 3*size//10);
+               the CLI with --devices 4 (a mesh of the one card) and as a
+               world of one NCCL process (--coordinator 127.0.0.1:PORT
+               --num_hosts 1 --host_id 0: ingest, reductions and
+               write_mrc_sharded), both equal to the plain CLI's output.
+               One card cannot show two ranks' NCCL messages or a
+               multi-GPU wall.
+
     python3 chip_smoke.py --stream_shape 512x1024x1024   # phases 1, 2, 6
 
 The last lines are the card's nvidia-smi line, a JSON object of the kernels
-(not with --stream_shape) and, last, ``{"ok": true, "device": {...}}``.
+(not with --stream_shape; each with its launches on the sharded paths
+under "paths") and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1546,6 +1563,150 @@ def phase_memory(dev, cfg, noisy, ks2s, ref, seed: int) -> None:
           f"{model / 2**30:.3f})", flush=True)
 
 
+# phase 4's paths run sharded in phase 7
+SHARDED_PATHS = ("solve", "compose", "compose_symmetric", "solve_bf16", "fast")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def shard_windows(shape, cfg, n_shards: int) -> tuple:
+    """Pass windows of a sharded denoise of ``shape``: every shard runs each
+    pass once, or once a slab (``cfg.slab_size``) of its planes."""
+    from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
+    from flowdenoising_tpu_torch.parallel.mesh import _pass_extent
+    out = []
+    for n, taps in zip(shape, get_gaussian_kernels(cfg.sigma)):
+        part = _pass_extent(n, len(taps) // 2, n_shards) // n_shards
+        out.append(n_shards * -(-part // (cfg.slab_size or part)))
+    return tuple(out)
+
+
+def phase_sharded(dev, size: int, seed: int, outputs: dict) -> dict:
+    """7 sharded: ``denoise_sharded`` over a mesh of 4 shards of the one
+    card on phase 4's noisy volume (sigma 2, D 8, wrap unless named), in
+    phase 4's paths, MEAN and REPLICATE, an uneven shape and a forced
+    per-shard slab, each bit-identical to the card's single-device
+    ``denoise`` with the launches its shard windows imply; the sharded
+    stream over 2 shards; the CLI with --devices 4 (a mesh of the one card)
+    and as a world of one NCCL process (--coordinator), each equal to the
+    plain CLI's output.  Returns each sharded path's launches."""
+    from flowdenoising_tpu_torch.config import Boundary, FilterConfig, FlowConfig
+    from flowdenoising_tpu_torch.core.pipeline import denoise
+    from flowdenoising_tpu_torch.core.stream import denoise_streamed
+    from flowdenoising_tpu_torch.io import volume as volume_io
+    from flowdenoising_tpu_torch.io.mrc import read_mrc, write_mrc
+    from flowdenoising_tpu_torch.ops import cuda as K
+    from flowdenoising_tpu_torch.parallel.mesh import denoise_sharded, make_mesh
+
+    shape = (size,) * 3
+    noisy = blob_volume(*shape, seed) + np.random.default_rng(seed + 1).normal(
+        0.0, 40.0, shape).astype(np.float32)
+    mesh4 = make_mesh(devices=[dev] * 4)
+    counts = {}
+
+    def same(name, out, ref):
+        require(out.shape == ref.shape and bool(np.isfinite(out).all()),
+                f"{name}: output shape {out.shape} or non-finite values")
+        require(np.array_equal(out, ref), f"{name}: not bit-identical to one "
+                f"device (max abs diff {float(np.abs(out - ref).max())})")
+
+    def sharded(name, vol, cfg, ref, mesh=mesh4):
+        """One sharded denoise against ``ref`` with its launch counts."""
+        torch.cuda.synchronize()
+        K.reset_launches()
+        secs = wall_s(lambda: res.append(denoise_sharded(vol, cfg, mesh=mesh)))
+        launches = dict(K.LAUNCHES)
+        windows = shard_windows(np.shape(vol), cfg, len(mesh))
+        want = expected_launches(np.shape(vol), cfg, windows)
+        require(launches == want, f"{name}: launches {launches}, expected {want} "
+                f"(windows {windows})")
+        same(name, res.pop().cpu().numpy(), ref)
+        counts[name] = launches
+        print(f"[7 sharded] {'x'.join(map(str, np.shape(vol)))} {name}: "
+              f"{len(mesh)} shards of one card, windows a pass {windows}; "
+              f"bit-identical to one device; launches {nonzero(launches)} as "
+              f"expected; {secs:.3f} s", flush=True)
+
+    res = []
+    vol = torch.from_numpy(noisy).to(dev)
+    for name in SHARDED_PATHS:
+        sharded(f"sharded_{name}", vol, FilterConfig(flow=FlowConfig(**PATHS[name][1])),
+                outputs[name])
+    solve = FilterConfig(flow=FlowConfig())
+    for boundary in (Boundary.MEAN, Boundary.REPLICATE):
+        cfg = dataclasses.replace(solve, boundary=boundary)
+        # an array input: the MEAN fill is volume_mean, as in the CLI
+        sharded(f"sharded_{boundary.value}", noisy, cfg,
+                denoise(noisy, cfg).cpu().numpy())
+    uneven = np.ascontiguousarray(noisy[:size - 2, :, :size - 6])
+    sharded("sharded_uneven", uneven, solve, denoise(uneven, solve).cpu().numpy())
+    del uneven
+    sharded("sharded_slabs", vol, dataclasses.replace(solve, slab_size=size // 10 + 1),
+            outputs["solve"])
+
+    # the warm walls: one device and 4 shards of it, in turns
+    walls = {"one device": [], "4 shards": []}
+    for what in ("one device", "4 shards", "4 shards", "one device"):
+        fn = ((lambda: denoise(vol, solve)) if what == "one device"
+              else (lambda: denoise_sharded(vol, solve, mesh=mesh4)))
+        walls[what].append(wall_s(fn))
+    print(f"[7 sharded] {size}^3 solve warm wall, one device: "
+          f"{', '.join(f'{t:.3f}' for t in walls['one device'])} s; 4 shards of "
+          f"the card: {', '.join(f'{t:.3f}' for t in walls['4 shards'])} s (in "
+          "turns)", flush=True)
+    del vol
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "noisy.mrc"
+        write_mrc(src, noisy)
+        del noisy
+        # the sharded stream: windows of S planes, each over 2 shards
+        slab = 3 * size // 10
+        mesh2 = make_mesh(devices=[dev] * 2)
+        mapped = volume_io.read_volume(src, memory_map=True)
+        K.reset_launches()
+        secs = wall_s(lambda: res.append(denoise_streamed(
+            mapped, solve, slab_size=slab, tmp_dir=tmp, mesh=mesh2)))
+        launches = dict(K.LAUNCHES)
+        windows = (2 * -(-size // slab),) * 3
+        want = expected_launches(shape, solve, windows)
+        require(launches == want, f"sharded stream: launches {launches}, "
+                f"expected {want}")
+        same("sharded stream", np.asarray(res.pop()), outputs["solve"])
+        counts["sharded_stream"] = launches
+        del mapped
+        print(f"[7 sharded] {size}^3 sharded stream (denoise_streamed, S {slab}, "
+              f"2 shards of one card): windows a pass {windows}; bit-identical "
+              f"to the in-memory output; launches {nonzero(launches)} as "
+              f"expected; {secs:.3f} s", flush=True)
+
+        base = ["-i", str(src), "-s", "2", "2", "2", "--max_displacement", "8"]
+        cards = len(make_mesh(4))
+        for name, flags, n_shards in (
+                ("cli_devices", ["--devices", "4"], cards),
+                ("cli_coordinator", ["--coordinator", f"127.0.0.1:{free_port()}",
+                                     "--num_hosts", "1", "--host_id", "0",
+                                     "--device", "cuda"], 1)):
+            dst = Path(tmp) / f"{name}.mrc"
+            secs, launches, _ = cli_run([*base, *flags, "-o", str(dst)], {})
+            want = expected_launches(shape, solve, shard_windows(shape, solve, n_shards))
+            require(launches == want, f"{name}: launches {launches}, expected {want}")
+            out, _ = read_mrc(dst)
+            same(name, np.asarray(out), outputs["solve"])
+            counts[name] = launches
+            print(f"[7 sharded] {size}^3 CLI {' '.join(flags)}: {n_shards} "
+                  f"shard(s); bit-identical to the plain CLI output; launches "
+                  f"{nonzero(launches)} as expected; {secs:.2f} s", flush=True)
+        require(not torch.distributed.is_initialized(),
+                "the process group outlived the CLI run")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--size", type=int, default=256,
@@ -1573,6 +1734,8 @@ def main() -> int:
     phase_e2e(dev, args.seed)
     torch.cuda.empty_cache()
     phase_stream(dev, (args.size,) * 3, args.seed, outputs)
+    torch.cuda.empty_cache()
+    sharded = phase_sharded(dev, args.size, args.seed, outputs)
     del outputs
 
     # each kernel form's launches from the path that defines it: K-umuf and
@@ -1605,9 +1768,12 @@ def main() -> int:
                              "flowdenoising_tpu/ops/pallas/compose.py:141", "fast"),
     }
     print(card)
+    # "paths": the launches of each sharded path that runs the kernel
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": counts[path][name], **kern[name]}
+         "launches": counts[path][name], **kern[name],
+         "paths": {path: counts[path][name],
+                   **{p: n[name] for p, n in sharded.items() if n[name]}}}
         for name, (source, replaces, path) in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

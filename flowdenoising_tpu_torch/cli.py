@@ -7,10 +7,13 @@ Usage:
 The port runs the flow denoise in both tap modes (``--tap_flow solve``,
 the default, and ``--tap_flow compose`` with ``--symmetric_adjacent``) and
 ``-n``, in float32 or in the bf16 fast mode (``--dtype bfloat16
---precision bfloat16``), on one device, in memory (each pass in windows
-sized for the card where the whole axis does not fit), or streamed from
-disk (``--stream``), with per-pass checkpoints (``--checkpoint_dir``) that
-a rerun resumes from.  The displacement bound is
+--precision bfloat16``), in memory (each pass in windows sized for the
+card where the whole axis does not fit), or streamed from disk
+(``--stream``), with per-pass checkpoints (``--checkpoint_dir``) that a
+rerun resumes from; on one device, sharded over the first N
+(``--devices N``), or over processes, one per GPU
+(``--coordinator HOST:PORT --num_hosts N --host_id I``: NCCL on CUDA,
+gloo with ``--device cpu``).  The displacement bound is
 probed from the volume by default (``--max_displacement auto``), and flows
 may be estimated from a presmoothed copy (``--flow_presmooth``).  ``-v 2``
 logs the per-stage device time: measured from a ``torch.profiler`` trace
@@ -97,7 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "memory model allows, else the largest slab that "
                         "fits)")
     p.add_argument("--devices", type=int, default=None,
-                   help="Number of devices (not yet ported: one device only, ROADMAP A11)")
+                   help="Shard the passes over the first N CUDA cards (with "
+                        "--device cpu: N shards of the CPU), bit-identical to "
+                        "one device; default one device")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
                    help="Optical-flow pass dtype: bfloat16 carries the "
                         "stack, the expansion pyramid, the tap flows and the "
@@ -143,11 +148,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Quantize TIFF output like the reference sequential "
                         "variant: uint8 if max < 256 else uint16")
     p.add_argument("--coordinator", type=str, default=None,
-                   help="Multi-process runs (not yet ported, ROADMAP A11)")
+                   help="host:port of rank 0's torch.distributed store; "
+                        "launch one CLI process per GPU (or CPU rank) with "
+                        "matching --num_hosts/--host_id.  Each process reads "
+                        "only its Z planes of the input and writes only its "
+                        "planes of the output (shared storage, MRC only)")
     p.add_argument("--num_hosts", type=int, default=1,
-                   help="Multi-process runs (not yet ported, ROADMAP A11)")
+                   help="Total number of distributed CLI processes")
     p.add_argument("--host_id", type=int, default=None,
-                   help="Multi-process runs (not yet ported, ROADMAP A11)")
+                   help="This process's rank in [0, num_hosts)")
     p.add_argument("--device", type=str, default="cuda",
                    help="Torch device: 'cuda' runs the CUDA kernels, 'cpu' "
                         "their plain PyTorch versions")
@@ -160,10 +169,60 @@ def _refuse_unported(args) -> None:
             and args.max_displacement == 0):
         raise SystemExit("--dtype bfloat16 with --max_displacement 0 (no "
                          "bound) is not yet ported (ROADMAP A9)")
-    if (args.devices not in (None, 1) or args.coordinator
-            or args.num_hosts != 1 or args.host_id is not None):
-        raise SystemExit("--devices, --coordinator, --num_hosts and "
-                         "--host_id are not yet ported (ROADMAP A11)")
+
+
+def _check_distributed(args, auto_disp: bool, auto_presmooth: bool) -> None:
+    """Exit on flags a multi-process run cannot take, before any process
+    joins the group (the JAX CLI's checks)."""
+    if not args.coordinator:
+        return
+    if auto_disp:
+        raise SystemExit("--max_displacement auto needs the input volume on "
+                         "one host to probe; pass an explicit bound with "
+                         "--coordinator runs")
+    if auto_presmooth:
+        raise SystemExit("--flow_presmooth auto needs the input volume on "
+                         "one host to measure; pass an explicit sigma with "
+                         "--coordinator runs")
+    if args.host_id is None or not (0 <= args.host_id < args.num_hosts):
+        raise SystemExit("--coordinator requires --num_hosts and a "
+                         "--host_id in [0, num_hosts)")
+    if args.stream or args.checkpoint_dir:
+        raise SystemExit("--stream/--checkpoint_dir are not supported "
+                         "with --coordinator (multi-process runs)")
+    from flowdenoising_tpu_torch.io.volume import is_mrc_input, is_mrc_output
+    if not (is_mrc_input(args.input) and is_mrc_output(args.output)):
+        raise SystemExit("--coordinator runs need MRC input and output "
+                         "(sharded file I/O); convert TIFF stacks first")
+
+
+def _main_distributed(args, cfg, kernels, device, prof) -> int:
+    """Multi-process file-to-file run (parallel/distributed.py): each rank
+    reads its Z planes, the passes run sharded over the process group, and
+    each rank writes its planes of the shared output file."""
+    import torch.distributed as dist
+
+    from flowdenoising_tpu_torch.io.mrc import read_mrc_header
+    from flowdenoising_tpu_torch.parallel.distributed import (
+        init_distributed, run_distributed)
+    from flowdenoising_tpu_torch.utils.progress import ProgressReporter
+
+    if not os.path.exists(args.input):
+        raise SystemExit(f"input volume not found: {args.input}")
+    shape = read_mrc_header(args.input).shape
+    dev = init_distributed(args.coordinator, args.num_hosts, args.host_id,
+                           device)
+    try:
+        logging.info(f"rank {args.host_id} of {args.num_hosts} on {dev}, "
+                     f"backend {dist.get_backend()}")
+        with prof.phase("filter"), ProgressReporter(sum(shape)) as progress:
+            run_distributed(args.input, args.output, cfg, kernels,
+                            on_pass=lambda i, _: progress.advance(shape[i]),
+                            device=dev)
+    finally:
+        dist.destroy_process_group()
+    prof.report()
+    return 0
 
 
 def _device(name: str) -> torch.device:
@@ -187,8 +246,8 @@ def main(argv=None) -> int:
     verbosity = args.verbosity if isinstance(args.verbosity, int) else 0
     setup_logging(verbosity)
     if args.max_displacement is None:
-        # no probe without flow; multi-process runs (refused below) would
-        # need the volume on one host to probe
+        # no probe without flow; a multi-process run has no volume on one
+        # host to probe
         args.max_displacement = (MAX_DISPLACEMENT
                                  if args.no_OF or args.coordinator else "auto")
     auto_disp = args.max_displacement == "auto"
@@ -203,7 +262,11 @@ def main(argv=None) -> int:
         logging.info("--max_displacement/--flow_presmooth auto ignored: flow "
                      "compensation is disabled (-n)")
     _refuse_unported(args)
+    _check_distributed(args, auto_disp, auto_presmooth)
     device = _device(args.device)
+    if args.devices not in (None, 1) and device.index is not None:
+        raise SystemExit(f"--devices {args.devices} shards over the first "
+                         f"cards; pass --device cuda, not {args.device}")
     # full float32 for the resize matrix products (PyTorch's default; a
     # TF32 product keeps ~3 decimal digits)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -241,6 +304,10 @@ def main(argv=None) -> int:
     if args.number_of_processes is not None or args.use_GPU or args.use_threads:
         logging.info("-p/--use_GPU/--use_threads accepted for reference "
                      f"compatibility; the work runs on {device}")
+    if args.coordinator:
+        kernels = get_gaussian_kernels(sigma)
+        logging.info(f"length of each filter (Z, Y, X) = {[len(k) for k in kernels]}")
+        return _main_distributed(args, cfg, kernels, device, prof)
 
     from flowdenoising_tpu_torch.core.pipeline import denoise, volume_mean
     from flowdenoising_tpu_torch.io.volume import (
@@ -333,17 +400,26 @@ def main(argv=None) -> int:
 
                     denoise_streamed(vol, cfg, kernels, tmp_dir=stream_dir,
                                      out=filtered, slab_size=args.slab_size,
-                                     progress=stream_progress, device=device)
+                                     progress=stream_progress,
+                                     n_devices=args.devices, device=device)
                 else:
                     def on_pass(i, v):
                         progress.advance(shape[i])
                         if ckpt is not None:
                             ckpt.save_pass(i, v)
 
-                    filtered = denoise(
-                        vol, cfg, kernels=kernels, start_pass=start_pass,
-                        mean_val=mean_val, on_pass=on_pass,
-                        device=device).cpu().numpy()
+                    if args.devices not in (None, 1):
+                        from flowdenoising_tpu_torch.parallel.mesh import (
+                            denoise_sharded)
+                        filtered = denoise_sharded(
+                            vol, cfg, kernels=kernels, n_devices=args.devices,
+                            start_pass=start_pass, mean_val=mean_val,
+                            on_pass=on_pass, device=device)
+                    else:
+                        filtered = denoise(
+                            vol, cfg, kernels=kernels, start_pass=start_pass,
+                            mean_val=mean_val, on_pass=on_pass, device=device)
+                    filtered = filtered.cpu().numpy()
 
         log_volume_stats(str(args.output), filtered)
 

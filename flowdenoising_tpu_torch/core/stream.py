@@ -54,6 +54,7 @@ from flowdenoising_tpu_torch.core.axis_filter import (
     gaussian_pass_padded, of_pass_padded)
 from flowdenoising_tpu_torch.core.pipeline import _PASS_LAYOUTS, volume_mean
 from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
+from flowdenoising_tpu_torch.parallel.mesh import make_mesh, sharded_window_pass
 
 
 def _gather_into(dst: np.ndarray, src, axis: int, lo: int, hi: int,
@@ -194,16 +195,20 @@ def denoise_streamed(src, cfg: FilterConfig = FilterConfig(), kernels=None, *,
     ``tmp_dir``: where the scratch directory goes (the system's default
     when None).  ``progress(done, total)`` is called after every window
     with output-plane counts, ``on_pass(i, array)`` after each pass.
-    ``mesh``/``n_devices`` above 1 (a sharded stream) are not ported
-    (ROADMAP A11).  Returns the output array (``out`` when given).
+    ``mesh`` (``parallel.mesh.make_mesh``; or ``n_devices`` above 1, the
+    mesh of that many ``device``s): each window is staged on the mesh's
+    first device and its pass runs sharded over the mesh
+    (``sharded_window_pass``), bit for bit the single-device result; the
+    auto window grows by the shard count.  Returns the output array
+    (``out`` when given).
     """
     shape = tuple(src.shape)
     if len(shape) != 3:
         raise ValueError(f"volume must be (Z, Y, X), got shape {shape}")
-    if mesh is not None or (n_devices is not None and n_devices > 1):
-        raise NotImplementedError("a stream sharded over devices is not "
-                                  "yet ported (ROADMAP A11)")
-    device = torch.device(device)
+    if mesh is None and n_devices is not None and n_devices > 1:
+        mesh = make_mesh(n_devices, device=device)
+    n_dev = 1 if mesh is None else len(mesh)
+    device = torch.device(device if mesh is None else mesh[0])
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device}: no CUDA device is available "
                            "(pass device=\"cpu\" to run on the CPU)")
@@ -211,6 +216,8 @@ def denoise_streamed(src, cfg: FilterConfig = FilterConfig(), kernels=None, *,
     mean_val = volume_mean(src) if cfg.boundary is Boundary.MEAN else None
 
     def pass_fn(window, taps):
+        if n_dev > 1:
+            return sharded_window_pass(window, taps, cfg, mesh)
         if cfg.use_flow:
             return of_pass_padded(window, taps, cfg.flow)
         return gaussian_pass_padded(window, taps)
@@ -225,6 +232,9 @@ def denoise_streamed(src, cfg: FilterConfig = FilterConfig(), kernels=None, *,
             slab = memory.pass_slab(cfg, n, h, w, ks2,
                                     memory.device_budget(device),
                                     streamed=True)
+            if slab is not None:
+                # each shard's part of a window is what the model bounds
+                slab *= n_dev
         plans.append((n, h, w, ks2, min(slab or n, n)))
     windows = _Windows(device,
                        max((s + 2 * k) * h * w for n, h, w, k, s in plans),

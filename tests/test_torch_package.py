@@ -69,8 +69,6 @@ def test_default_device_cuda_raises_without_cuda(mrc_in, tmp_path):
     (["--max_displacement", "0", "--dtype", "bfloat16"], "A9"),
     (["--max_displacement", "0", "--dtype", "bfloat16", "--tap_flow",
       "compose"], "A9"),
-    (["--devices", "2"], "A11"),
-    (["--coordinator", "localhost:1234"], "A11"),
 ])
 def test_unported_flags_exit_naming_roadmap_item(flags, item, mrc_in, tmp_path):
     with pytest.raises(SystemExit, match=item):

@@ -2,8 +2,8 @@
 window gathering against the JAX package's at atol 0, the stream against
 the port's in-memory pipeline at atol 0 (every boundary, the Gaussian and
 the solve pass, a slab that does not divide the axis, the overlap off),
-memmap input, ``out=``/progress, the scratch directory, the sharded-stream
-refusal, the slice against JAX's ``denoise_streamed`` (the Gaussian at
+memmap input, ``out=``/progress, the scratch directory, the slice
+against JAX's ``denoise_streamed`` (the Gaussian at
 ``tests/test_torch_pipeline.py``'s tolerance, solve at >= 55 dB, the
 repo's end-to-end bar) and the CLI's ``--stream`` against its in-memory run.
 """
@@ -139,12 +139,6 @@ def test_scratch_removed_when_the_run_fails(tmp_path):
                          slab_size=3, tmp_dir=str(tmp_path), on_pass=boom,
                          device="cpu")
     assert list(tmp_path.iterdir()) == []
-
-
-def test_sharded_stream_refused_naming_a11(tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
-        denoise_streamed(_vol((8, 16, 16)), _cfg(Boundary.WRAP, False),
-                         n_devices=2, device="cpu")
 
 
 def test_default_device_cuda_raises_without_cuda():
