@@ -8,7 +8,10 @@ Phases, one or more lines of output each (any failure exits non-zero):
 1. device   -- a CUDA device of capability 9.0 (H100); its name and power
                limit as nvidia-smi reports them.
 2. build    -- the kernels under flowdenoising_tpu_torch/csrc, compiled
-               with nvcc for sm_90a (one compiler per source, in parallel).
+               with nvcc for sm_90a (one compiler per source, in parallel),
+               and beside them the native I/O runtime libfdio
+               (flowdenoising_tpu_torch/runtime, g++); either failing to
+               build or load fails the run.
 3. kernels  -- K-sample, K-umuf, K-compose, K-um and K-uf against their
                plain PyTorch versions on the card, at the shapes the main
                paths give them, with the tolerances of the JAX package's own
@@ -28,7 +31,10 @@ Phases, one or more lines of output each (any failure exits non-zero):
                to compose_run_plain at D 8 and None, with and without the
                carry rounding and the symmetric sign, and timed at the main
                path's pass call beside the 16 per-tap K-compose launches it
-               replaced.
+               replaced.  K-uf also on the M of the split route's bf16
+               phase 1 (--dtype bfloat16 --max_displacement 0) at every
+               level of a 256^2 plane, batch 256, bit for bit, timed at
+               level 0 beside that phase 1.
 4. main     -- paths through the CLI (python -m flowdenoising_tpu_torch
                ... -s 2 2 2) on a seeded size^3 blob volume with noise,
                through MRC files: at --max_displacement 8 solve mode,
@@ -39,8 +45,14 @@ Phases, one or more lines of output each (any failure exits non-zero):
                bfloat16, run with -v 2 and the trace read as empty, so the
                reconstructed stage report runs K-um-bf16) and in the JAX
                README's fast mode (fast: compose, symmetric adjacent flows,
-               bf16), each also against the same path at float32; then
-               auto_v2, the CLI's
+               bf16), each also against the same path at float32; the
+               bf16 pass with no bound (the split route: bf16 phase 1 in
+               plain PyTorch, K-uf, the exact gather in bf16) in solve mode
+               (solve_bf16_nobound) and in the fast mode's compose flags
+               (fast_nobound), each against the same flags at float32,
+               with -v 2 and its measured stage report, and
+               solve_bf16_nobound once more with the trace read as empty
+               (the reconstruction); then auto_v2, the CLI's
                default flow setup with -v 2 (the auto displacement probe,
                the profiled run and its measured stage report), and the
                same command once more with the trace read as empty, so the
@@ -48,14 +60,15 @@ Phases, one or more lines of output each (any failure exits non-zero):
                K-uf) on the card.  Each CLI run has the launch counts set
                to 0 just before it; the counts must be what its probe, tap,
                level and report loops imply, the output finite and closer
-               to the clean volume than the input.  Then a warm timed run
+               to the clean volume than the input, and its MRC read and
+               write must go through libfdio.  Then a warm timed run
                of ``denoise`` per path, which must equal the CLI's output, a
                torch.profiler run of solve and compose for the device-time
                split, the cost of the -v 2 profiling, and the two stage
                reports side by side.
 5. e2e      -- a 24x96x96 volume through ``denoise`` on the card (kernels)
                and on the CPU (plain versions), in solve and in compose
-               mode, presmoothed, and in both bf16 paths: PSNR >= 55 dB
+               mode, presmoothed, and in the four bf16 paths: PSNR >= 55 dB
                between them; the compose and fast outputs bit-identical.
 6. stream   -- the streamed, resumed and batched paths on phase 4's noisy
                volume (sigma 2, D 8, wrap unless named), each bit-identical
@@ -65,7 +78,8 @@ Phases, one or more lines of output each (any failure exits non-zero):
                slab: one window a pass at these sizes; its host RSS rise
                beside the in-memory solve's); stream_slabs
                (--slab_size S = 3*size//10: 4 windows a pass with a shifted
-               tail), twice; stream_compose; stream_mean; denoise_streamed
+               tail), twice; stream_compose; stream_mean;
+               stream_bf16_nobound (against phase 4's output); denoise_streamed
                with its overlap off and on, in turns; resume (a
                --checkpoint_dir run stopped after pass 1's checkpoint, the
                same command resuming at pass 2 and stopped in the write,
@@ -94,6 +108,9 @@ Phases, one or more lines of output each (any failure exits non-zero):
                write_mrc_sharded), both equal to the plain CLI's output.
                One card cannot show two ranks' NCCL messages or a
                multi-GPU wall.
+8. io      -- the CLI's read and write of a 512^3 float32 MRC through
+               libfdio and through the NumPy path, in turns: the same
+               array and the same file bytes, and their walls.
 
     python3 chip_smoke.py --stream_shape 512x1024x1024   # phases 1, 2, 6
 
@@ -230,15 +247,27 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
+    from flowdenoising_tpu_torch import runtime
     from flowdenoising_tpu_torch.ops.cuda import build
     t0 = time.perf_counter()
-    path = build.build()
+    # the native I/O runtime (g++) beside the kernels (nvcc); either
+    # failing to build fails the run
+    with ThreadPoolExecutor(1) as pool:
+        fdio = pool.submit(runtime.build)
+        path = build.build()
+        fdio_path = fdio.result()
     build.load_library()
+    require(runtime.native_available(), f"libfdio built at {fdio_path} but "
+            "did not load")
     secs = time.perf_counter() - t0
     log = path.with_suffix(".log").read_text() if path.with_suffix(".log").exists() else ""
     usage = [ln.split("info    : ")[-1] for ln in log.splitlines()
              if "registers" in ln or "Compiling entry" in ln]
     print(f"[2 build] {path.name} in {secs:.2f} s; ptxas: {' | '.join(usage)}",
+          flush=True)
+    print(f"[2 build] native I/O runtime {fdio_path} built and loaded",
           flush=True)
 
 
@@ -501,8 +530,39 @@ def phase_kernels(dev, seed: int) -> dict:
             main = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                         library_ms=None)
         del out, ref, diff
-    res["uf"] = dict(max_abs_err=err, **main)
     del m
+    # K-uf on the split route (--dtype bfloat16 --max_displacement 0): M of
+    # the bf16 phase 1 at each level of a 256^2 plane, batch 256 (the tap
+    # solver's n at 256^3), winsize 5, bit for bit against its plain version;
+    # timed at level 0, the path's largest call, beside the phase 1 that
+    # makes its M (plain PyTorch, as the JAX package's is XLA)
+    for size in (256, 128, 64, 32):
+        rr = F.poly_expand(t(r.normal(size=(2, 256, size, size)) * 40).to(torch.bfloat16))
+        flow = (banded_flow(256, size, size, None, scale=1.5) * (size / 256)
+                ).to(torch.bfloat16)
+        phase1 = lambda: F.update_matrices_xla(rr[0], rr[1], flow).float().contiguous()
+        m = phase1()
+        out = F.update_flow(m, 5)
+        ref = F.update_flow_plain(m, 5)
+        torch.cuda.synchronize()
+        require(torch.equal(out, ref), f"K-uf on the split route's M "
+                f"(256,5,{size},{size}): not bit-identical to its plain version "
+                f"(max abs err {float((out - ref).abs().max())})")
+        if size == 256:
+            ms = cuda_ms(lambda: F.update_flow(m, 5))
+            pms = cuda_ms(lambda: F.update_flow_plain(m, 5), reps=3)
+            m1 = cuda_ms(phase1, reps=3)
+            bms, by = bound(4 * (m.numel() + out.numel()), uf_flops(5) * (out.numel() // 2))
+            main = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                        library_ms=None)
+            print(f"[3 kernels] K-uf on the split route's M (256,5,256,256) ws=5: "
+                  f"bit-identical, kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+                  f"{bms:.4f} ms ({by}); its bf16 phase 1 (plain PyTorch, bf16 "
+                  f"flow) {m1:.4f} ms", flush=True)
+        del rr, flow, m, out, ref
+    print("[3 kernels] K-uf on the split route's M at every level of the 256^2 "
+          "pyramid (256, 128, 64, 32), batch 256: bit-identical", flush=True)
+    res["uf"] = dict(max_abs_err=err, **main)
     res.update(packed_forms(r, t, banded_flow, umuf_operands))
     res.update(compose_runs(r, t))
     return res
@@ -769,13 +829,16 @@ def expected_launches(shape, cfg, windows=(1, 1, 1), passes=(0, 1, 2)) -> dict:
     packed form (umuf_bf16) on the levels where the JAX package packs
     (``_packed_at_level``: --precision bfloat16, outside the tiny route).
     K-compose-run runs packed (compose_run_bf16) with --precision bfloat16.
-    A denoise never launches the per-tap K-compose, K-um or K-uf (its
-    solves run fused in K-umuf).  Pass i runs once per window,
+    A bf16 pass with no bound (the split route) launches K-uf once a level
+    and iteration of every solve and no other kernel (its phase 1, warps
+    and compose chain are plain PyTorch); else a denoise never launches
+    the per-tap K-compose, K-um or K-uf (its solves run fused in K-umuf).
+    Pass i runs once per window,
     ``windows[i]`` times (slabs, or a stream's windows with the recomputed
     tail); only the passes in ``passes`` run (a resumed run)."""
     from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
     from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf
-    from flowdenoising_tpu_torch.ops.farneback import _packed_at_level
+    from flowdenoising_tpu_torch.ops.farneback import _packed_at_level, split_route
     from flowdenoising_tpu_torch.ops.resize import pyramid_sizes
     planes = [(shape[1], shape[2]), (shape[0], shape[2]), (shape[0], shape[1])]
     f = cfg.flow
@@ -795,6 +858,9 @@ def expected_launches(shape, cfg, windows=(1, 1, 1), passes=(0, 1, 2)) -> dict:
         sizes = pyramid_sizes(h, w, f.clamped_levels(h, w), f.pyr_scale)
         solves = ((1 if f.symmetric_adjacent else 2) if f.tap_mode == "compose"
                   else n_taps) * windows[i]
+        if split_route(f):
+            n["uf"] += solves * len(sizes) * f.iterations
+            continue
         for k, (hk, wk) in enumerate(sizes):
             form = "umuf_bf16" if _packed_at_level(adj, k, hk, wk) else "umuf"
             n[form] += solves * len(plan_umuf(hk, wk, f.winsize,
@@ -840,6 +906,7 @@ def kernel_family(name: str) -> str:
     low = name.lower()
     for key, family in (("compose_run_kernel", "K-compose-run"),
                         ("compose_kernel", "K-compose"), ("umuf_kernel", "K-umuf"),
+                        ("uf_kernel", "K-uf"), ("um_kernel", "K-um"),
                         ("sample_kernel", "K-sample"), ("memcpy", "memcpy"),
                         ("memset", "memset"), ("gemm", "matmul (resize einsums)"),
                         ("xmma", "matmul (resize einsums)"),
@@ -858,7 +925,8 @@ def device_split(fn) -> tuple[float, float, list]:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from flowdenoising_tpu_torch.ops.farneback import EXPANSION_RANGE
+    from flowdenoising_tpu_torch.ops.farneback import EXPANSION_RANGE, SOLVE_RANGE
+    from flowdenoising_tpu_torch.ops.warp import WARP_RANGE
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -868,9 +936,11 @@ def device_split(fn) -> tuple[float, float, list]:
         wall = (time.perf_counter() - t0) * 1e3
     fam = {}
     for ev in prof.events():
-        # the range the port puts around the expansion pyramid also shows
-        # on the device; it spans kernels and is none
-        if ev.device_type != DeviceType.CUDA or ev.name == EXPANSION_RANGE:
+        # the ranges the port puts around the expansion pyramid and the
+        # split route's plain stages also show on the device; they span
+        # kernels and are none
+        if (ev.device_type != DeviceType.CUDA
+                or ev.name in (EXPANSION_RANGE, SOLVE_RANGE, WARP_RANGE)):
             continue
         key = kernel_family(ev.name)
         ms, count = fam.get(key, (0.0, 0))
@@ -901,14 +971,32 @@ PATHS = {
               "bfloat16", "--precision", "bfloat16"],
              {"tap_mode": "compose", "symmetric_adjacent": True,
               "dtype": "bfloat16", "precision": "bfloat16"}, 40.0),
+    # the bf16 pass with no bound (the split route: bf16 phase 1, K-uf, the
+    # exact gather in bf16); --max_displacement 0 after the 8 above wins
+    "solve_bf16_nobound": (["--dtype", "bfloat16", "--max_displacement", "0"],
+                           {"dtype": "bfloat16", "max_displacement": None}, 40.0),
+    "fast_nobound": (["--tap_flow", "compose", "--symmetric_adjacent", "--dtype",
+                      "bfloat16", "--precision", "bfloat16", "--max_displacement",
+                      "0"],
+                     {"tap_mode": "compose", "symmetric_adjacent": True,
+                      "dtype": "bfloat16", "precision": "bfloat16",
+                      "max_displacement": None}, 40.0),
 }
 # each bf16 path's float32 counterpart in PATHS
 FLOAT32_OF = {"solve_bf16": "solve", "fast": "compose_symmetric"}
+# the no-bound paths: compared with the same flags at float32, a warm
+# denoise (not a CLI run) of the config with dtype and precision float32
+FLOAT32_FIELDS = ("solve_bf16_nobound", "fast_nobound")
 # paths run with -v 2 and the measured report read as empty, so the CLI
 # runs the reconstructed stage report (K-um, K-uf, K-sample) on the card
 V2_FALLBACK = ("solve_bf16",)
+# paths run with -v 2 and their measured report checked; those also in
+# V2_FALLBACK_AFTER run the CLI a second time with the trace read as empty
+V2_MEASURED = ("solve_bf16_nobound", "fast_nobound")
+V2_FALLBACK_AFTER = ("solve_bf16_nobound",)
 # paths with a torch.profiler device-time split of their warm denoise
-SPLIT = ("solve", "compose", "solve_bf16", "fast")
+SPLIT = ("solve", "compose", "solve_bf16", "fast", "solve_bf16_nobound",
+         "fast_nobound")
 
 
 def phase_main(dev, size: int, seed: int) -> tuple[dict, dict]:
@@ -926,6 +1014,7 @@ def phase_main(dev, size: int, seed: int) -> tuple[dict, dict]:
 
     clean = blob_volume(size, size, size, seed)
     inputs = {}
+    measure = trace_report.measured_stage_report
 
     def noisy_input(std):
         """(noisy volume, its MRC file) at noise ``std``, made once."""
@@ -952,19 +1041,41 @@ def phase_main(dev, size: int, seed: int) -> tuple[dict, dict]:
             args = ["-i", str(src), "-o", str(dst), "-s", "2", "2", "2",
                     "--max_displacement", "8", *flags]
             want = expected_launches(clean.shape, cfg)
+            measured = []
             if name in V2_FALLBACK:
                 rc, cold, launches = cli_v2(
                     [*args, "-v", "2"],
                     {(trace_report, "measured_stage_report"): lambda path: None})
                 report = stage_report_launches(clean.shape, cfg)
                 want = {k: n + report[k] for k, n in want.items()}
+            elif name in V2_MEASURED:
+                def capture(path):
+                    measured.append(measure(path))
+                    return measured[-1]
+
+                rc, cold, launches = cli_v2(
+                    [*args, "-v", "2"],
+                    {(trace_report, "measured_stage_report"): capture})
             else:
                 rc, cold, launches = cli_v2([*args, "-v", "1"], {})
             require(rc == 0, f"{name}: cli.main returned {rc}")
             out, _ = read_mrc(dst)
             require(launches == want,
                     f"{name}: launch counts {launches}, expected {want}")
-            if cfg.flow.precision == "bfloat16" and size in (256, 512):
+            if name in V2_MEASURED:
+                require(len(measured) == 1 and measured[0] is not None,
+                        f"{name}: the CLI logged no measured stage report")
+                # the compose chain's warps are its OFE_solve
+                keys = ["OFE_solve", "OFE_expansion"]
+                if cfg.flow.tap_mode == "solve":
+                    keys.append("warping")
+                for key in keys:
+                    require(measured[0][key] > 0, f"{name}: measured {key} is 0")
+                print(f"[4 main] {size}^3 {name} -v 2 measured stage split, ms: "
+                      + "; ".join(f"{k} {1e3 * v:.1f}" for k, v in measured[0].items()),
+                      flush=True)
+            if (cfg.flow.precision == "bfloat16" and cfg.flow.max_displacement
+                    is not None and size in (256, 512)):
                 # packed levels on K-umuf-bf16; at 256^3 the tiny coarsest
                 # level (32^2, d 2) on float32 K-umuf; at 512^3 the coarsest
                 # level is 64^2, and every level is packed
@@ -1000,7 +1111,14 @@ def phase_main(dev, size: int, seed: int) -> tuple[dict, dict]:
             if name in FLOAT32_OF:
                 against = (f"; PSNR against the float32 path "
                            f"{FLOAT32_OF[name]}: {psnr(out, outputs[FLOAT32_OF[name]]):.2f} dB")
-            print(f"[4 main] {size}^3 CLI {name} denoise (sigma 2, D=8, wrap, "
+            if name in FLOAT32_FIELDS:
+                f32 = denoise(vol, dataclasses.replace(cfg, flow=dataclasses.replace(
+                    cfg.flow, dtype="float32", precision="float32"))).cpu().numpy()
+                against = (f"; PSNR against the same flags at float32: "
+                           f"{psnr(out, f32):.2f} dB")
+                del f32
+            print(f"[4 main] {size}^3 CLI {name} denoise (sigma 2, D="
+                  f"{cfg.flow.max_displacement or 'none'}, wrap, "
                   f"noise std {std:g}, presmooth {cfg.flow.presmooth}, dtype "
                   f"{cfg.flow.dtype}, precision {cfg.flow.precision}): "
                   f"launches {launches} as expected; PSNR vs clean {p_in:.2f} -> "
@@ -1020,6 +1138,24 @@ def phase_main(dev, size: int, seed: int) -> tuple[dict, dict]:
                       flush=True)
             del vol, warm
             counts[name] = launches
+            if name in V2_FALLBACK_AFTER:
+                # -v 2 once more with the trace read as empty: the CLI's
+                # fallback, the reconstruction (K-um, K-uf, K-sample)
+                dst2 = Path(tmp) / f"denoised_{name}_recon.mrc"
+                rc, cold2, rlaunch = cli_v2(
+                    [*args[:3], str(dst2), *args[4:], "-v", "2"],
+                    {(trace_report, "measured_stage_report"): lambda path: None})
+                report = stage_report_launches(clean.shape, cfg)
+                want2 = {k: n + report[k] for k, n in want.items()}
+                require(rc == 0 and rlaunch == want2, f"{name} reconstruction run: "
+                        f"rc {rc}, launches {rlaunch}, expected {want2}")
+                same2 = np.array_equal(read_mrc(dst2)[0], out)
+                require(same2, f"{name}: the reconstruction run's output differs")
+                print(f"[4 main] {size}^3 CLI {name} -v 2 with the trace read as "
+                      f"empty: the reconstructed stage report ran on the card, "
+                      f"launches {nonzero(rlaunch)} = the denoise's + the "
+                      f"reconstruction's {nonzero(report)}; same output; CLI run "
+                      f"{cold2:.2f} s", flush=True)
         noisy, src = noisy_input(40.0)
         counts["auto_v2"], counts["stage_report"] = path_auto_v2(
             dev, Path(tmp), src, clean, noisy)
@@ -1029,22 +1165,29 @@ def phase_main(dev, size: int, seed: int) -> tuple[dict, dict]:
 def cli_v2(args: list, report_hooks: dict) -> tuple[int, float, dict]:
     """``cli.main(args)`` with launch counts set to 0 just before it and
     read just after, and the -v 2 report functions of ``report_hooks``
-    ({(module, name): replacement}) in place while it runs.  Returns (exit
-    code, seconds, launches)."""
-    from flowdenoising_tpu_torch import cli
+    ({(module, name): replacement}) in place while it runs.  The run must
+    read and write its MRC files through the native runtime (libfdio), not
+    the NumPy path.  Returns (exit code, seconds, launches)."""
+    from flowdenoising_tpu_torch import cli, runtime
     from flowdenoising_tpu_torch.ops import cuda as K
 
     saved = {key: getattr(*key) for key in report_hooks}
     for (module, name), fn in report_hooks.items():
         setattr(module, name, fn)
     K.reset_launches()
+    runtime.reset_native_calls()
     t0 = time.perf_counter()
     try:
         rc = cli.main(args)
     finally:
         for (module, name), fn in saved.items():
             setattr(module, name, fn)
-    return rc, time.perf_counter() - t0, dict(K.LAUNCHES)
+    secs = time.perf_counter() - t0
+    native = dict(runtime.NATIVE_CALLS)
+    require(native["read_convert"] >= 1 and native["write_raw"] >= 1,
+            f"cli {args}: native I/O calls {native}: the run read or wrote "
+            "through the NumPy path")
+    return rc, secs, dict(K.LAUNCHES)
 
 
 def path_auto_v2(dev, tmp: Path, src: Path, clean, noisy):
@@ -1184,10 +1327,14 @@ def phase_e2e(dev, seed: int) -> None:
     vol = blob_volume(24, 96, 96, seed + 2)
     vol += np.random.default_rng(seed + 3).normal(0, 20, vol.shape).astype(np.float32)
     fast = dict(dtype="bfloat16", precision="bfloat16")
+    nobound = dict(dtype="bfloat16", max_displacement=None)
     for name, fields in (
             ("solve", {}), ("compose", {"tap_mode": "compose"}),
             ("solve presmooth 1.5", {"presmooth": 1.5}), ("solve_bf16", fast),
-            ("fast", {"tap_mode": "compose", "symmetric_adjacent": True, **fast})):
+            ("fast", {"tap_mode": "compose", "symmetric_adjacent": True, **fast}),
+            ("solve_bf16_nobound", nobound),
+            ("fast_nobound", {"tap_mode": "compose", "symmetric_adjacent": True,
+                              **fast, **nobound})):
         cfg = FilterConfig(flow=FlowConfig(**fields))
         on_card = denoise(vol, cfg, device=dev).cpu().numpy()
         on_cpu = denoise(vol, cfg, device="cpu").numpy()
@@ -1305,14 +1452,18 @@ def phase_stream(dev, shape, seed: int, main_outputs=None) -> None:
     slab_windows = tuple(-(-n // slab) for n, _, _ in passes)
     cfgs = {"solve": FilterConfig(flow=FlowConfig()),
             "compose": FilterConfig(flow=FlowConfig(tap_mode="compose")),
-            "mean": FilterConfig(boundary=Boundary.MEAN, flow=FlowConfig())}
+            "mean": FilterConfig(boundary=Boundary.MEAN, flow=FlowConfig()),
+            "solve_bf16_nobound": FilterConfig(flow=FlowConfig(
+                dtype="bfloat16", max_displacement=None))}
 
     with tempfile.TemporaryDirectory() as tmp:
         src = Path(tmp) / "noisy.mrc"
         write_mrc(src, noisy)
         base = ["-i", str(src), "-s", "2", "2", "2", "--max_displacement", "8"]
         path_flags = {"solve": [], "compose": ["--tap_flow", "compose"],
-                      "mean": ["--boundary", "mean"]}
+                      "mean": ["--boundary", "mean"],
+                      "solve_bf16_nobound": ["--dtype", "bfloat16",
+                                             "--max_displacement", "0"]}
 
         def output(name):
             """A run's output, read and its file removed (disk space)."""
@@ -1389,17 +1540,24 @@ def phase_stream(dev, shape, seed: int, main_outputs=None) -> None:
                                                  streamed=True)
                         for (n, h, w), k in zip(passes, ks2s))
             require(peak <= model, f"{run}: peak {peak} B above the model's {model} B")
+            against = (f"in-memory {walls[name]:.2f} s" if name in walls
+                       else "phase 4's in-memory CLI output")
             print(f"[6 stream] {tag} {run} (--stream --slab_size {slab}"
                   f"{' ' + ' '.join(path_flags[name]) if path_flags[name] else ''}): "
                   f"windows a pass {slab_windows}; bit-identical to the in-memory "
                   f"output; launches {nonzero(launches)} as expected; CLI {secs:.2f} s against "
-                  f"in-memory {walls[name]:.2f} s; peak device memory "
+                  f"{against}; peak device memory "
                   f"{peak / 2**30:.3f} GiB (model {model / 2**30:.3f})", flush=True)
 
         streamed("stream_slabs", "solve", [])
         streamed("stream_slabs_again", "solve", [])
         streamed("stream_compose", "compose", [])
         streamed("stream_mean", "mean", [])
+        if main_outputs is not None:
+            # the bf16 pass with no bound, against phase 4's CLI output of
+            # the same volume (not run with --stream_shape)
+            ref["solve_bf16_nobound"] = main_outputs["solve_bf16_nobound"]
+            streamed("stream_bf16_nobound", "solve_bf16_nobound", [])
 
         # the overlap: the library stream with it off and on, in turns
         mapped = volume_io.read_volume(src, memory_map=True)
@@ -1707,6 +1865,54 @@ def phase_sharded(dev, size: int, seed: int, outputs: dict) -> dict:
     return counts
 
 
+def phase_io(seed: int) -> None:
+    """8 io: the CLI's read (``read_volume(..., as_f32=True)``) and write
+    (``write_volume``) of a 512^3 float32 MRC (512 MiB) through the native
+    runtime and through the NumPy path, in turns (native, NumPy, NumPy,
+    native): each the same array and the same file bytes.  The read follows
+    the write, so it reads from the host's page cache."""
+    from flowdenoising_tpu_torch import runtime
+    from flowdenoising_tpu_torch.io.volume import read_volume, write_volume
+
+    vol = np.random.default_rng(seed + 7).normal(100.0, 40.0, (512,) * 3).astype(
+        np.float32)
+    walls = {"native": [], "numpy": []}
+    files = {}
+    load = runtime._load
+    with tempfile.TemporaryDirectory() as tmp:
+        for path in ("native", "numpy", "numpy", "native"):
+            dst = Path(tmp) / f"{path}.mrc"
+            if path == "numpy":
+                runtime._load = lambda: None
+            try:
+                runtime.reset_native_calls()
+                t0 = time.perf_counter()
+                write_volume(dst, vol)
+                t1 = time.perf_counter()
+                back = read_volume(dst, as_f32=True)
+                t2 = time.perf_counter()
+                calls = dict(runtime.NATIVE_CALLS)
+            finally:
+                runtime._load = load
+            n = int(path == "native")
+            require(calls == {"read_convert": n, "write_raw": n, "stats": n},
+                    f"io {path}: native calls {calls}")
+            require(np.array_equal(back, vol), f"io {path}: the array read back "
+                    "is not the one written")
+            walls[path].append((t1 - t0, t2 - t1))
+            data = dst.read_bytes()
+            require(files.setdefault(path, data) == data and
+                    files.get("native", data) == data,
+                    f"io {path}: the file's bytes differ from the native path's")
+            dst.unlink()
+            del back, data
+    fmt = "; ".join(f"{p}: " + ", ".join(f"write {w:.3f} s read {r:.3f} s"
+                                         for w, r in walls[p]) for p in walls)
+    print(f"[8 io] CLI read and write of a 512^3 float32 MRC (512 MiB), in turns: "
+          f"{fmt}; the same array and the same file bytes on both paths",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--size", type=int, default=256,
@@ -1737,13 +1943,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded = phase_sharded(dev, args.size, args.seed, outputs)
     del outputs
+    phase_io(args.seed)
 
     # each kernel form's launches from the path that defines it: K-umuf and
     # K-sample from solve mode, K-compose-run (and the per-tap K-compose,
-    # which no denoise launches now) from compose mode, K-um and K-uf from
-    # the auto_v2 CLI run that falls back to the reconstruction; the packed
-    # forms from the bf16 paths (K-um-bf16 from solve_bf16's
-    # reconstruction)
+    # which no denoise launches now) from compose mode, K-uf from the bf16
+    # pass with no bound, K-um from the auto_v2 CLI run that falls back to
+    # the reconstruction; the packed forms from the bf16 paths (K-um-bf16
+    # from solve_bf16's reconstruction)
     kernels = {
         "umuf": ("flowdenoising_tpu_torch/csrc/umuf.cu",
                  "flowdenoising_tpu/ops/pallas/umuf.py:87", "solve"),
@@ -1754,7 +1961,8 @@ def main() -> int:
         "um": ("flowdenoising_tpu_torch/csrc/um.cu",
                "flowdenoising_tpu/ops/pallas/update_matrices.py:54", "stage_report"),
         "uf": ("flowdenoising_tpu_torch/csrc/uf.cu",
-               "flowdenoising_tpu/ops/pallas/update_flow.py:32", "stage_report"),
+               "flowdenoising_tpu/ops/pallas/update_flow.py:32",
+               "solve_bf16_nobound"),
         "umuf_bf16": ("flowdenoising_tpu_torch/csrc/umuf.cu",
                       "flowdenoising_tpu/ops/pallas/umuf.py:87", "solve_bf16"),
         "compose_bf16": ("flowdenoising_tpu_torch/csrc/compose.cu",
@@ -1768,12 +1976,14 @@ def main() -> int:
                              "flowdenoising_tpu/ops/pallas/compose.py:141", "fast"),
     }
     print(card)
-    # "paths": the launches of each sharded path that runs the kernel
+    # "paths": the launches of every phase 4 path (the reconstruction as
+    # "stage_report") and every sharded path that runs the kernel
+    runs = {**counts, **sharded}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": counts[path][name], **kern[name],
          "paths": {path: counts[path][name],
-                   **{p: n[name] for p, n in sharded.items() if n[name]}}}
+                   **{p: n[name] for p, n in runs.items() if n[name]}}}
         for name, (source, replaces, path) in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -107,7 +107,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Optical-flow pass dtype: bfloat16 carries the "
                         "stack, the expansion pyramid, the tap flows and the "
                         "accumulator in bf16 between kernels (the output is "
-                        "float32; not with --max_displacement 0, ROADMAP A9)")
+                        "float32); with --max_displacement 0 the flow "
+                        "iterations' first half and the warps also compute "
+                        "in bf16, as the JAX package's do")
     p.add_argument("--precision", choices=["float32", "bfloat16"], default="float32",
                    help="Flow inner-pass precision: bfloat16 samples the "
                         "reference expansion (and, in compose mode, the "
@@ -161,14 +163,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Torch device: 'cuda' runs the CUDA kernels, 'cpu' "
                         "their plain PyTorch versions")
     return p
-
-
-def _refuse_unported(args) -> None:
-    """Exit, naming the ROADMAP item, on any flag of an unported feature."""
-    if (args.dtype == "bfloat16" and not args.no_OF
-            and args.max_displacement == 0):
-        raise SystemExit("--dtype bfloat16 with --max_displacement 0 (no "
-                         "bound) is not yet ported (ROADMAP A9)")
 
 
 def _check_distributed(args, auto_disp: bool, auto_presmooth: bool) -> None:
@@ -261,7 +255,6 @@ def main(argv=None) -> int:
     if args.no_OF and (auto_disp or auto_presmooth):
         logging.info("--max_displacement/--flow_presmooth auto ignored: flow "
                      "compensation is disabled (-n)")
-    _refuse_unported(args)
     _check_distributed(args, auto_disp, auto_presmooth)
     device = _device(args.device)
     if args.devices not in (None, 1) and device.index is not None:

@@ -2,9 +2,7 @@
 
 Field-for-field the configuration of the JAX package
 (``flowdenoising_tpu/config.py``), with the same defaults, so one setting
-means the same thing in both packages.  The port runs a subset of the
-settings; the pipeline refuses the others by name (see
-``FlowConfig.check_ported``).
+means the same thing in both packages, and the port runs every setting.
 
 This system has no learned weights: what a run carries is its
 configuration plus the Gaussian taps derived from it.  ``from_reference``
@@ -66,17 +64,6 @@ class FlowConfig:
             if getattr(self, name) not in ("float32", "bfloat16"):
                 raise ValueError(f"unknown {name} {getattr(self, name)!r}: "
                                  "expected 'float32' or 'bfloat16'")
-
-    def check_ported(self) -> None:
-        """Raise NotImplementedError, naming the ROADMAP item, for settings
-        the port does not run yet: a bfloat16 pass dtype with no bound,
-        where the JAX package runs Farneback and its exact gather in bf16
-        arithmetic.  (``precision`` bfloat16 with no bound is the float32
-        path there, and here.)"""
-        if self.dtype == "bfloat16" and self.max_displacement is None:
-            raise NotImplementedError(
-                "dtype bfloat16 with no displacement bound (max_displacement "
-                "None, --max_displacement 0) is not yet ported (ROADMAP A9)")
 
     def clamped_levels(self, height: int, width: int) -> int:
         """Number of pyramid levels actually used for an image size

@@ -31,6 +31,13 @@ float32.  ``precision`` bfloat16: the packed kernel forms sample the
 pyramid's r1 and, in compose mode, the links and neighbours rounded to
 bf16 (with a bound only).  The solve-mode tap warp has no packed form in
 the JAX package: K-sample reads a float32 copy of the stack.
+
+A bfloat16 pass with no bound (``ops.farneback.split_route``) runs what
+the JAX package runs there, which has no fused kernel: each solve the
+split iteration at every level (bf16 phase 1 in plain PyTorch, K-uf), the
+tap flows carried in bf16, every warp the exact gather in bf16 arithmetic
+(``ops.warp.displace_sample_xla``), and in compose mode the tap chain as
+plain PyTorch operations in bf16 (``_compose_chain``).
 """
 
 from __future__ import annotations
@@ -44,8 +51,9 @@ from flowdenoising_tpu_torch.config import Boundary, FlowConfig
 from flowdenoising_tpu_torch.ops.blur import gaussian_blur, rounded
 from flowdenoising_tpu_torch.ops.cuda.compose import compose_run
 from flowdenoising_tpu_torch.ops.farneback import (
-    flow_from_pyramids, polyexp_pyramid, tap_solver)
-from flowdenoising_tpu_torch.ops.warp import displace_sample
+    SOLVE_RANGE, flow_from_pyramids, polyexp_pyramid, split_route, tap_solver)
+from flowdenoising_tpu_torch.ops.warp import (
+    WARP_RANGE, displace_sample, displace_sample_xla)
 
 
 def pad_stack(vol: torch.Tensor, pad: int, boundary: Boundary,
@@ -107,7 +115,6 @@ def of_pass_padded(padded: torch.Tensor, taps: np.ndarray,
     backward run (offsets -1 .. -ks2), then the forward run (+1 .. +ks2).
     The accumulator is updated in place.  The result is float32.
     """
-    flow_cfg.check_ported()
     taps = np.asarray(taps, dtype=np.float64)
     if len(taps) % 2 != 1:
         raise ValueError("kernel size must be odd")
@@ -118,19 +125,28 @@ def of_pass_padded(padded: torch.Tensor, taps: np.ndarray,
     ks2 = len(taps) // 2
     n = padded.shape[0] - 2 * ks2
     solve = tap_solver(_estimation_stack(padded, flow_cfg), ks2, n, flow_cfg)
+    split = split_route(flow_cfg)
     # K-sample's source: the stack itself, or a float32 copy of the bf16
-    # stack (exact), made once per pass
-    src = padded.float()
+    # stack (exact), made once per pass; the split route's gather samples
+    # the bf16 stack
+    src = padded if split else padded.float()
     acc = padded[ks2:ks2 + n] * rounded(taps[ks2], dtype)
     for sign in (-1, +1):
         flow = None   # each run starts from zero flow
         for j in range(1, ks2 + 1):
             start = ks2 + sign * j
             flow = solve(start, flow if flow_cfg.use_initial_flow else None)
-            if dtype != torch.float32:
-                flow = flow.to(dtype).float()
-            warped = displace_sample(src[start:start + n], flow[:, 0],
-                                     flow[:, 1], flow_cfg.max_displacement)
+            if split:
+                # the tap flow carried and sampled in bf16
+                flow = flow.to(dtype)
+                with torch.profiler.record_function(WARP_RANGE):
+                    warped = displace_sample_xla(src[start:start + n],
+                                                 flow[:, 0], flow[:, 1])
+            else:
+                if dtype != torch.float32:
+                    flow = flow.to(dtype).float()
+                warped = displace_sample(src[start:start + n], flow[:, 0],
+                                         flow[:, 1], flow_cfg.max_displacement)
             acc.add_((warped * rounded(taps[ks2 + sign * j], dtype)).to(dtype))
     return acc.float()
 
@@ -162,6 +178,14 @@ def _of_pass_composed(padded: torch.Tensor, taps: np.ndarray,
     r_levels = polyexp_pyramid(_estimation_stack(padded, flow_cfg), flow_cfg)
     lo = [r[:-1] for r in r_levels]
     hi = [r[1:] for r in r_levels]
+    if split_route(flow_cfg):
+        # no bound: adj_cfg is flow_cfg
+        adj_fwd = flow_from_pyramids(lo, hi, flow_cfg, None).to(dtype)
+        adj_bwd = (-adj_fwd if flow_cfg.symmetric_adjacent else
+                   flow_from_pyramids(hi, lo, flow_cfg, None).to(dtype))
+        del r_levels, lo, hi
+        with torch.profiler.record_function(SOLVE_RANGE):
+            return _compose_chain(padded, taps, adj_fwd, adj_bwd)
     # the adjacent flows in the pass dtype; the kernel's sources in bf16
     # for the packed form, else float32
     src = (torch.bfloat16 if flow_cfg.precision == "bfloat16" and d is not None
@@ -180,3 +204,32 @@ def _of_pass_composed(padded: torch.Tensor, taps: np.ndarray,
                for sign in (-1, +1) for j in range(1, ks2 + 1)]
     return compose_run(adj_fwd, adj_bwd, nb, acc, weights, d,
                        round_carry=dtype != torch.float32)
+
+
+def _compose_chain(padded: torch.Tensor, taps: np.ndarray,
+                   adj_fwd: torch.Tensor, adj_bwd: torch.Tensor) -> torch.Tensor:
+    """The compose pass with no bound, as the JAX package's tap scan runs it
+    when it has no fused step (``flowdenoising_tpu/core/axis_filter.py:
+    _of_pass_composed``, ``body_of``): per tap, F = (F + warp(link, F)) and
+    acc += (warp(neighbour, F) * w), each warp the exact gather and each
+    result rounded to the pass dtype, the carry F starting from zeros in
+    the pass dtype in each run.  adj_*: (N + 2*ks2 - 1, 2, H, W) in the
+    pass dtype.  Plain PyTorch on the stack's device; returns float32."""
+    dtype = padded.dtype
+    ks2 = len(taps) // 2
+    n = padded.shape[0] - 2 * ks2
+    acc = padded[ks2:ks2 + n] * rounded(taps[ks2], dtype)
+    # backward run (offsets -1 .. -ks2): the link of distance j at padded
+    # index start; forward run (+1 .. +ks2): at start - 1
+    for sign, adj, shift in ((-1, adj_bwd, 0), (+1, adj_fwd, -1)):
+        flow = torch.zeros((n, 2) + tuple(padded.shape[1:]), dtype=dtype,
+                           device=padded.device)
+        for j in range(1, ks2 + 1):
+            start = ks2 + sign * j
+            link = adj[start + shift:start + shift + n]
+            flow = (flow + displace_sample_xla(link, flow[:, 0], flow[:, 1])
+                    ).to(dtype)
+            warped = displace_sample_xla(padded[start:start + n], flow[:, 0],
+                                         flow[:, 1])
+            acc.add_((warped * rounded(taps[ks2 + sign * j], dtype)).to(dtype))
+    return acc.float()

@@ -29,15 +29,18 @@ from __future__ import annotations
 import torch
 
 from flowdenoising_tpu_torch.config import FilterConfig
+from flowdenoising_tpu_torch.ops.farneback import split_route
 
 # Peak bytes per padded voxel of one pass, by the pass dtype (the no-flow
 # Gaussian apart): the largest ratio measured over windows of 32-272
 # planes of 128x1024 to 1024^2, in every tap mode and precision, at D 8,
 # 48 and no bound (scripts/torch_memory_peaks.py on one NVIDIA H100 80GB
 # HBM3): 15.29 (Gaussian), 85.31 (float32: solve, compose, symmetric,
-# --precision bfloat16), 97.39 (--dtype bfloat16), rounded up.
+# --precision bfloat16), 97.39 (--dtype bfloat16), 227.91 (--dtype
+# bfloat16 with no bound, the split route: its phase 1 and gathers are
+# plain PyTorch, with int64 indices and a float32 M), rounded up.
 BYTES_PER_PADDED_VOXEL = {"gaussian": 16.0, "float32": 88.0,
-                          "bfloat16": 100.0}
+                          "bfloat16": 100.0, "bfloat16_nobound": 232.0}
 # What a presmoothed pass adds (its blurred float32 copy of the window:
 # 89.31 measured against 85.31).
 PRESMOOTH_BYTES_PER_PADDED_VOXEL = 4.0
@@ -58,7 +61,7 @@ def bytes_per_padded_voxel(cfg: FilterConfig) -> float:
     if not cfg.use_flow:
         return BYTES_PER_PADDED_VOXEL["gaussian"]
     f = cfg.flow
-    b = BYTES_PER_PADDED_VOXEL[f.dtype]
+    b = BYTES_PER_PADDED_VOXEL["bfloat16_nobound" if split_route(f) else f.dtype]
     if f.presmooth and f.presmooth > 0:
         b += PRESMOOTH_BYTES_PER_PADDED_VOXEL
     return b

@@ -1,4 +1,5 @@
-"""Volume I/O: MRC2014 and multi-page TIFF (NumPy only)."""
+"""Volume I/O: MRC2014 (with the native runtime's fast paths) and
+multi-page TIFF."""
 
 from flowdenoising_tpu_torch.io.volume import read_volume, write_volume
 from flowdenoising_tpu_torch.io.mrc import read_mrc, write_mrc, MrcHeader

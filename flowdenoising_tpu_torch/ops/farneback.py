@@ -13,11 +13,12 @@ Counterpart of ``flowdenoising_tpu/ops/farneback.py``; the algorithm of
    iterated ``cfg.iterations`` times per level.
 
 ``update_matrices_plain`` and ``update_flow_plain`` are the plain versions
-of the kernels K-um and K-uf, whose wrappers ``update_matrices`` and
-``update_flow`` (``ops.cuda.um``, ``ops.cuda.uf``) only the ``-v 2`` stage
-report calls.  The solver fuses 2+3: on a CUDA tensor each level's
-iterations run in K-umuf (``ops.cuda.umuf.umuf_iterate``) on every level,
-the smallest included; ``umuf_iterate_plain`` is its plain version.
+of the kernels K-um and K-uf (wrappers ``update_matrices`` and
+``update_flow`` in ``ops.cuda.um``, ``ops.cuda.uf``).  With a bound, or in
+float32, the solver fuses 2+3: on a CUDA tensor each level's iterations
+run in K-umuf (``ops.cuda.umuf.umuf_iterate``) on every level, the smallest
+included; ``umuf_iterate_plain`` is its plain version.  K-um runs only in
+the ``-v 2`` stage report.
 
 Layout: channel-first with the batch leading -- expansions (B, 5, H, W),
 flows (B, 2, H, W) with channel 0 = x -- so one slice range of a stack's
@@ -33,6 +34,11 @@ The bf16 fast mode, as the JAX package runs it on the TPU:
   Pallas kernel (a finite bound, not the tiny route of ``_tiny_level``)
   sample r1 rounded to bfloat16, through the packed form K-umuf-bf16
   (``_packed_at_level``).
+- ``--dtype bfloat16`` with no bound (``split_route``): the JAX package's
+  fused kernel needs a bound, so every level runs its split iteration:
+  phase 1 in XLA in bf16 arithmetic (``update_matrices_xla``, plain
+  PyTorch here too) and phase 2 in its Pallas kernel B5 on a float32 copy
+  of M (K-uf, ``update_flow``), which returns a float32 flow.
 """
 
 from __future__ import annotations
@@ -50,17 +56,22 @@ from flowdenoising_tpu_torch.ops.cuda.um import update_matrices
 from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
 from flowdenoising_tpu_torch.ops.resize import (
     pyramid_sizes, resize_area, resize_linear)
-from flowdenoising_tpu_torch.ops.warp import displace_sample_plain
+from flowdenoising_tpu_torch.ops.warp import (
+    displace_sample_plain, displace_sample_xla)
 
-__all__ = ["EXPANSION_RANGE", "farneback_flow", "flow_from_pyramids",
-           "image_pyramid", "poly_exp_constants", "poly_expand",
-           "polyexp_pyramid", "smoothed_level_image", "tap_solver",
-           "umuf_iterate", "umuf_iterate_plain", "update_flow",
-           "update_flow_plain", "update_matrices", "update_matrices_plain"]
+__all__ = ["EXPANSION_RANGE", "SOLVE_RANGE", "farneback_flow",
+           "flow_from_pyramids", "image_pyramid", "poly_exp_constants",
+           "poly_expand",
+           "polyexp_pyramid", "smoothed_level_image", "split_iterate",
+           "split_route", "tap_solver", "umuf_iterate", "umuf_iterate_plain",
+           "update_flow", "update_flow_plain", "update_matrices",
+           "update_matrices_plain", "update_matrices_xla"]
 
-# The torch.profiler range around the expansion pyramid, by which the -v 2
-# measured report (utils.trace_report) finds the pyramid's kernels.
+# The torch.profiler ranges by which the -v 2 measured report
+# (utils.trace_report) finds the kernels of the expansion pyramid and of the
+# split route's plain PyTorch phase 1.
 EXPANSION_RANGE = "OFE_expansion"
+SOLVE_RANGE = "OFE_solve"
 
 # Border down-weighting ramp (OpenCV farneback.cpp FarnebackUpdateMatrices).
 _BORDER_RAMP = np.array([0.14, 0.14, 0.4472, 0.4472, 0.4472], dtype=np.float64)
@@ -142,6 +153,50 @@ def _border_scale_map(h: int, w: int) -> np.ndarray:
     return np.outer(sy, sx)
 
 
+def _normal_equations(r0: torch.Tensor, s, inb: torch.Tensor,
+                      dx: torch.Tensor, dy: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """M = [G11, G12, G22, h1, h2] (..., 5, H, W) from r0's channels, r1's
+    sampled channels ``s``, the in-plane mask, the flow and the border
+    scale, each operation in its operands' dtype as the JAX package writes
+    it (its 0.5 and 0.25 are constants of r0's dtype, exact in any)."""
+    a = r0.unbind(-3)
+    r4 = torch.where(inb, (a[2] + s[2]) * 0.5, a[2])
+    r5 = torch.where(inb, (a[3] + s[3]) * 0.5, a[3])
+    r6 = torch.where(inb, (a[4] + s[4]) * 0.25, a[4] * 0.5)
+    r2 = (a[0] - torch.where(inb, s[0], 0.0)) * 0.5
+    r3 = (a[1] - torch.where(inb, s[1], 0.0)) * 0.5
+
+    r2 = r2 + r4 * dy + r6 * dx
+    r3 = r3 + r6 * dy + r5 * dx
+
+    r2 = r2 * scale
+    r3 = r3 * scale
+    r4 = r4 * scale
+    r5 = r5 * scale
+    r6 = r6 * scale
+
+    return torch.stack([
+        r4 * r4 + r6 * r6,
+        (r4 + r5) * r6,
+        r5 * r5 + r6 * r6,
+        r4 * r2 + r6 * r3,
+        r6 * r2 + r5 * r3,
+    ], dim=-3)
+
+
+def _in_plane(fx: torch.Tensor, fy: torch.Tensor, h: int, w: int):
+    """Where the displaced pixel's bilinear footprint lies in the plane."""
+    x1 = torch.floor(fx)
+    y1 = torch.floor(fy)
+    return (x1 >= 0) & (x1 <= w - 2) & (y1 >= 0) & (y1 <= h - 2)
+
+
+def _border_scale(h: int, w: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(_border_scale_map(h, w), dtype=like.dtype,
+                           device=like.device)
+
+
 def update_matrices_plain(r0: torch.Tensor, r1: torch.Tensor,
                           flow: torch.Tensor,
                           max_displacement: int | None = None,
@@ -161,38 +216,34 @@ def update_matrices_plain(r0: torch.Tensor, r1: torch.Tensor,
     dy = flow[..., 1, :, :]
     gx = torch.arange(w, dtype=r0.dtype, device=r0.device)
     gy = torch.arange(h, dtype=r0.dtype, device=r0.device).reshape(h, 1)
-    x1 = torch.floor(gx + dx)
-    y1 = torch.floor(gy + dy)
-    inb = (x1 >= 0) & (x1 <= w - 2) & (y1 >= 0) & (y1 <= h - 2)
-
+    inb = _in_plane(gx + dx, gy + dy, h, w)
     s = displace_sample_plain(r1, dx, dy, max_displacement).unbind(-3)
-    a = r0.unbind(-3)
-    r4 = torch.where(inb, (a[2] + s[2]) * 0.5, a[2])
-    r5 = torch.where(inb, (a[3] + s[3]) * 0.5, a[3])
-    r6 = torch.where(inb, (a[4] + s[4]) * 0.25, a[4] * 0.5)
-    r2 = (a[0] - torch.where(inb, s[0], 0.0)) * 0.5
-    r3 = (a[1] - torch.where(inb, s[1], 0.0)) * 0.5
-
-    r2 = r2 + r4 * dy + r6 * dx
-    r3 = r3 + r6 * dy + r5 * dx
-
-    scale = torch.as_tensor(_border_scale_map(h, w), dtype=r0.dtype,
-                            device=r0.device)
+    scale = _border_scale(h, w, r0)
     if ramp_bf16:
         scale = scale.to(torch.bfloat16).to(r0.dtype)
-    r2 = r2 * scale
-    r3 = r3 * scale
-    r4 = r4 * scale
-    r5 = r5 * scale
-    r6 = r6 * scale
+    return _normal_equations(r0, s, inb, dx, dy, scale)
 
-    return torch.stack([
-        r4 * r4 + r6 * r6,
-        (r4 + r5) * r6,
-        r5 * r5 + r6 * r6,
-        r4 * r2 + r6 * r3,
-        r6 * r2 + r5 * r3,
-    ], dim=-3)
+
+def update_matrices_xla(r0: torch.Tensor, r1: torch.Tensor,
+                        flow: torch.Tensor) -> torch.Tensor:
+    """Phase 1 with no bound as the JAX package's ``update_matrices(r0, r1,
+    flow, None)`` computes it in XLA, op by op in the operands' dtypes: on
+    a bfloat16 pyramid the pixel coordinates, the exact gather of r1
+    (``displace_sample_xla``) and the border scale are bf16, and each
+    operation takes the wider of its operands' dtypes (a float32 flow makes
+    the sampled values and M float32, a bfloat16 one leaves them bf16).
+    r0, r1: (..., 5, H, W) of one dtype; flow: (..., 2, H, W).  Returns M
+    (..., 5, H, W) in the promoted dtype.  Plain PyTorch on any device: the
+    JAX package has no kernel for it.
+    """
+    h, w = r0.shape[-2], r0.shape[-1]
+    dx = flow[..., 0, :, :]
+    dy = flow[..., 1, :, :]
+    gx = torch.arange(w, dtype=r0.dtype, device=r0.device)
+    gy = torch.arange(h, dtype=r0.dtype, device=r0.device).reshape(h, 1)
+    inb = _in_plane(gx + dx, gy + dy, h, w)
+    s = displace_sample_xla(r1, dx, dy).unbind(-3)
+    return _normal_equations(r0, s, inb, dx, dy, _border_scale(h, w, r0))
 
 
 def update_flow_plain(m: torch.Tensor, winsize: int) -> torch.Tensor:
@@ -208,6 +259,20 @@ def update_flow_plain(m: torch.Tensor, winsize: int) -> torch.Tensor:
     u = (g11 * h2 - g12 * h1) * idet
     v = (g22 * h1 - g12 * h2) * idet
     return torch.stack([u, v], dim=-3)
+
+
+def split_iterate(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
+                  iters: int, winsize: int) -> torch.Tensor:
+    """``iters`` Farneback iterations with no bound as the JAX package's
+    split iteration runs them on the TPU: phase 1 ``update_matrices_xla``,
+    then K-uf (``update_flow``) on a float32 copy of M.  Returns the
+    float32 flow of the last iteration."""
+    for _ in range(iters):
+        with torch.profiler.record_function(SOLVE_RANGE):
+            m = update_matrices_xla(r0, r1, flow).float().contiguous()
+        flow = update_flow(m, winsize)
+        del m
+    return flow
 
 
 def umuf_iterate_plain(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
@@ -256,12 +321,25 @@ def _packed_at_level(cfg: FlowConfig, k: int, hk: int, wk: int) -> bool:
             and not _tiny_level(d, hk, wk))
 
 
+def split_route(cfg: FlowConfig) -> bool:
+    """Whether the solves of a pass under ``cfg`` run the JAX package's
+    split iteration (``split_iterate``) at every level: a bfloat16 pass
+    with no bound, where the JAX package's fused kernels, which need a
+    bound, do not run and its phase 1 runs in bf16 arithmetic.  (A float32
+    pass with no bound runs the same function as its split iteration in
+    K-umuf with the clamp off.)"""
+    return cfg.dtype == "bfloat16" and cfg.max_displacement is None
+
+
 def _level_operands(cfg: FlowConfig, k: int, r0: torch.Tensor,
                     r1: torch.Tensor):
     """K-umuf's operands at level k from pyramid levels of either dtype:
     (r0 in float32, r1 in bfloat16 where packed else float32, whether the
     border ramp is rounded to bfloat16).  A float32 operand of a float32
-    level is the level itself, not a copy."""
+    level is the level itself, not a copy.  On the split route the levels
+    themselves, in the pyramid's dtype."""
+    if split_route(cfg):
+        return r0, r1, False
     hk, wk = r0.shape[-2], r0.shape[-1]
     d = _level_displacement(cfg, k)
     packed = _packed_at_level(cfg, k, hk, wk)
@@ -273,10 +351,17 @@ def _level_operands(cfg: FlowConfig, k: int, r0: torch.Tensor,
 def _solve_levels(levels, cfg: FlowConfig, initial_flow: torch.Tensor | None,
                   round_level_flow: bool) -> torch.Tensor:
     """Coarse to fine over ``levels`` [(r0, r1, ramp_bf16) of
-    ``_level_operands``]; the flow is float32 throughout.  With
+    ``_level_operands``]; the flow is float32 between levels.  With
     ``round_level_flow`` each Pallas level's input flow is rounded to
     bfloat16 (the JAX package's ``flow.astype(r0.dtype)`` in
-    ``_iterate_level`` on a bf16 pyramid)."""
+    ``_iterate_level`` on a bf16 pyramid).
+
+    The coarsest level starts from the seed resized in float32, or from a
+    float32 zero flow; on the split route, as in the JAX package, from the
+    seed resized in its own dtype (a bf16 pass carries its tap flows in
+    bf16), or from zeros in the pyramid's dtype, so that level's first
+    phase 1 runs wholly in bf16."""
+    split = split_route(cfg)
     flow = None
     for k in range(len(levels) - 1, -1, -1):
         r0, r1, ramp_bf16 = levels[k]
@@ -284,13 +369,17 @@ def _solve_levels(levels, cfg: FlowConfig, initial_flow: torch.Tensor | None,
         d = _level_displacement(cfg, k)
         if flow is None:
             if cfg.use_initial_flow and initial_flow is not None:
-                flow = (resize_area(initial_flow.float(), (hk, wk))
-                        * (cfg.pyr_scale ** k))
+                seed = initial_flow if split else initial_flow.float()
+                flow = resize_area(seed, (hk, wk)) * (cfg.pyr_scale ** k)
             else:
                 flow = torch.zeros(r0.shape[:-3] + (2, hk, wk),
-                                   dtype=torch.float32, device=r0.device)
+                                   dtype=r0.dtype if split else torch.float32,
+                                   device=r0.device)
         else:
             flow = resize_linear(flow, (hk, wk)) * (1.0 / cfg.pyr_scale)
+        if split:
+            flow = split_iterate(r0, r1, flow, cfg.iterations, cfg.winsize)
+            continue
         if round_level_flow and not _tiny_level(d, hk, wk):
             flow = flow.to(torch.bfloat16).float()
         flow = umuf_iterate(r0, r1, flow.contiguous(), cfg.iterations, d,
@@ -334,11 +423,12 @@ def flow_from_pyramids(r0_levels: list[torch.Tensor],
     r*_levels[k]: (B, 5, h_k, w_k), float32 or bfloat16; initial_flow:
     (B, 2, H, W) full resolution, INTER_AREA-resized to the coarsest level
     and scaled by pyr_scale**k.  On a bfloat16 pyramid each Pallas level's
-    input flow is rounded to bfloat16, as the JAX package's does.  The
-    coarsest level starts from a float32 zero flow (the JAX package's is in
-    the pyramid dtype, which runs a bf16 pyramid's tiny coarsest level in
-    bf16 arithmetic; the port runs every tiny level as the prepped solver
-    does, in float32).  Returns (B, 2, H, W) float32.
+    input flow is rounded to bfloat16, as the JAX package's does.  With a
+    bound the coarsest level starts from a float32 zero flow (the JAX
+    package's is in the pyramid dtype, which runs a bf16 pyramid's tiny
+    coarsest level in bf16 arithmetic; the port runs every tiny level as
+    the prepped solver does, in float32); on the split route from zeros in
+    the pyramid dtype, as the JAX package's.  Returns (B, 2, H, W) float32.
     """
     levels = [_level_operands(cfg, k, r0, r1)
               for k, (r0, r1) in enumerate(zip(r0_levels, r1_levels))]
@@ -357,7 +447,10 @@ def tap_solver(padded: torch.Tensor, interior_start: int, n: int,
     of a float32 pyramid).  The returned ``solve(start, init_flow)`` solves
     the flows from the targets to the references ``padded[start:start+n]``,
     a view into r1, so no tap copies an operand.  As the prepped solver,
-    it keeps the flow in float32 between levels.  Returns (n, 2, H, W).
+    it keeps the flow in float32 between levels.  On the split route (a
+    bf16 pass with no bound) the operands are the bf16 pyramid itself, and
+    a bf16 ``init_flow`` is resized in bf16, as the JAX package's
+    ``flow_from_pyramids`` does.  Returns (n, 2, H, W) float32.
     """
     levels = [_level_operands(cfg, k, r[interior_start:interior_start + n], r)
               for k, r in enumerate(polyexp_pyramid(padded, cfg))]
@@ -380,7 +473,6 @@ def farneback_flow(reference: torch.Tensor, target: torch.Tensor,
     initial_flow and the result: (..., H, W, 2) float32, channel 0 = x
     displacement, such that ``warp_slices(reference, flow) ~ target``.
     """
-    cfg.check_ported()
     lead = target.shape[:-2]
     h, w = target.shape[-2], target.shape[-1]
     dtype = getattr(torch, cfg.dtype)

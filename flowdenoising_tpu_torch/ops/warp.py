@@ -5,6 +5,10 @@ flow[y,x,0], y + flow[y,x,1])``, bilinear, replicate borders.  With a
 displacement bound D the flow is clamped to +-D first.  The JAX package
 evaluates that bound as a static window of shifted reads, a device for the
 TPU; on |u|, |v| <= D it is the same function as the clamped gather here.
+
+With no bound in a bfloat16 pass the JAX package samples with its exact
+gather in bf16 arithmetic, coordinates included (``displace_sample_xla``);
+it has no kernel there, and neither has the port.
 """
 
 from __future__ import annotations
@@ -13,8 +17,12 @@ import torch
 
 from flowdenoising_tpu_torch.ops.cuda.sample import displace_sample
 
-__all__ = ["bilinear_sample", "displace_sample", "displace_sample_plain",
-           "warp_slices"]
+__all__ = ["WARP_RANGE", "bilinear_sample", "displace_sample",
+           "displace_sample_plain", "displace_sample_xla", "warp_slices"]
+
+# The torch.profiler range around the split route's tap warps (plain
+# PyTorch), by which the -v 2 measured report finds their kernels.
+WARP_RANGE = "warping"
 
 
 def bilinear_sample(img: torch.Tensor, fx: torch.Tensor,
@@ -28,9 +36,9 @@ def bilinear_sample(img: torch.Tensor, fx: torch.Tensor,
     tx = fx - x0
     ty = fy - y0
     # bound before the integer cast: every x0 outside [-1, w] selects the
-    # same edge pair
-    x0i = x0.clamp(-1, w).to(torch.int64)
-    y0i = y0.clamp(-1, h).to(torch.int64)
+    # same edge pair (in float32, where w is exact; a bf16 bound may not be)
+    x0i = x0.float().clamp(-1, w).to(torch.int64)
+    y0i = y0.float().clamp(-1, h).to(torch.int64)
     xa = x0i.clamp(0, w - 1)
     xb = (x0i + 1).clamp(0, w - 1)
     ya = y0i.clamp(0, h - 1)
@@ -68,15 +76,27 @@ def displace_sample_plain(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         d = float(max_displacement)
         u = u.clamp(-d, d)
         v = v.clamp(-d, d)
+    return displace_sample_xla(src, u, v)
+
+
+def displace_sample_xla(src: torch.Tensor, u: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``displace_sample`` with no bound, op by op:
+    ``bilinear_sample`` at (u + x, v + y) with the pixel coordinates in
+    src's dtype, so a bfloat16 src is sampled in bf16 arithmetic (no
+    fractional coordinate past 128, no odd one past 256) and the lerps
+    round to bf16 (a float32 (u, v) promotes them to float32, as in JAX).
+
+    src is (..., H, W), or (..., C, H, W) with u, v (..., H, W) shared
+    across C.
+    """
     h, w = src.shape[-2], src.shape[-1]
+    if src.ndim == u.ndim + 1:
+        u = u.unsqueeze(-3)
+        v = v.unsqueeze(-3)
     gx = torch.arange(w, dtype=src.dtype, device=src.device)
     gy = torch.arange(h, dtype=src.dtype, device=src.device).reshape(h, 1)
-    fx = gx + u
-    fy = gy + v
-    if src.ndim == u.ndim + 1:
-        fx = fx.unsqueeze(-3)
-        fy = fy.unsqueeze(-3)
-    return bilinear_sample(src, fx, fy)
+    return bilinear_sample(src, u + gx, v + gy)
 
 
 def warp_slices(ref: torch.Tensor, flow: torch.Tensor,

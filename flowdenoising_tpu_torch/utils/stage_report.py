@@ -66,7 +66,8 @@ def device_stage_report(vol_shape: tuple[int, int, int], cfg: FilterConfig,
     ``_SAMPLE_SLICES``-slice batches and scaled linearly in slice count.
     """
     from flowdenoising_tpu_torch.ops.farneback import (
-        _level_displacement, poly_expand, update_flow, update_matrices)
+        _level_displacement, poly_expand, split_route, update_flow,
+        update_matrices)
     from flowdenoising_tpu_torch.ops.resize import resize_linear
     from flowdenoising_tpu_torch.ops.warp import warp_slices
 
@@ -148,10 +149,12 @@ def device_stage_report(vol_shape: tuple[int, int, int], cfg: FilterConfig,
         t_acc = timed(lambda a, s: a + s * 0.123, img, img + 1)
         totals["convolution"] += t_acc * taps_nc * scale_n
 
+    run = ("runs it with a bf16 phase 1" if split_route(fcfg)
+           else "uses the fused K-umuf")
     logging.info("[stages] reconstructed device time (per-op microbench at "
                  f"{b}-slice samples on {device}, scaled to full passes; "
-                 "OFE_solve times the split iteration K-um + K-uf, the run "
-                 "uses the fused K-umuf):")
+                 f"OFE_solve times the split iteration K-um + K-uf, the run "
+                 f"{run}):")
     total = sum(totals.values())
     for name, secs in sorted(totals.items(), key=lambda kv: -kv[1]):
         pct = 100.0 * secs / total if total else 0.0

@@ -8,11 +8,15 @@ of that trace by stage:
 
 - ``OFE_solve``     -- the flow-iteration kernels K-umuf, K-compose,
                        K-compose-run, K-um and K-uf (the kernels that
-                       return flow stacks, and the compose pass);
-- ``warping``       -- K-sample;
-- ``OFE_expansion`` -- every other kernel inside a ``torch.profiler``
-                       range named ``OFE_expansion`` (the port puts one
-                       around ``ops.farneback.polyexp_pyramid``: its
+                       return flow stacks, and the compose pass), and every
+                       other kernel inside a ``torch.profiler`` range named
+                       ``OFE_solve`` (the split route's bf16 phase 1 and
+                       compose chain, plain PyTorch operations);
+- ``warping``       -- K-sample, and every other kernel inside a range
+                       named ``warping`` (the split route's bf16 gather);
+- ``OFE_expansion`` -- every other kernel inside a range named
+                       ``OFE_expansion`` (the port puts one around
+                       ``ops.farneback.polyexp_pyramid``: its
                        shift-and-adds are not a kernel family of their own);
 - ``elementwise``   -- every other kernel (tap accumulate, pads, flow
                        scaling, resize products, copies by kernel);
@@ -33,10 +37,14 @@ import tempfile
 
 import torch
 
-from flowdenoising_tpu_torch.ops.farneback import EXPANSION_RANGE
+from flowdenoising_tpu_torch.ops.farneback import EXPANSION_RANGE, SOLVE_RANGE
+from flowdenoising_tpu_torch.ops.warp import WARP_RANGE
 
 _SOLVE = re.compile(r"\b(umuf|compose|compose_run|um|uf)_kernel\b")
 _WARP = re.compile(r"\bsample_kernel\b")
+# the stage of the kernels inside each of the port's profiler ranges
+_RANGES = {EXPANSION_RANGE: "OFE_expansion", SOLVE_RANGE: "OFE_solve",
+           WARP_RANGE: "warping"}
 _COPY_CATS = ("gpu_memcpy", "gpu_memset")
 
 
@@ -80,9 +88,10 @@ def measured_stage_report(path: str) -> dict[str, float] | None:
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
     spans = [e for e in events if e.get("ph") == "X"]
-    expansion = [(e.get("pid"), e["ts"], e["ts"] + e.get("dur", 0))
-                 for e in spans if e.get("cat") == "gpu_user_annotation"
-                 and e.get("name") == EXPANSION_RANGE]
+    ranges = [(e.get("pid"), e["ts"], e["ts"] + e.get("dur", 0),
+               _RANGES[e.get("name")])
+              for e in spans if e.get("cat") == "gpu_user_annotation"
+              and e.get("name") in _RANGES]
 
     totals = {"OFE_solve": 0.0, "warping": 0.0, "OFE_expansion": 0.0,
               "elementwise": 0.0, "async_copies": 0.0}
@@ -100,11 +109,11 @@ def measured_stage_report(path: str) -> dict[str, float] | None:
             totals["OFE_solve"] += dur
         elif _WARP.search(name):
             totals["warping"] += dur
-        elif any(pid == e.get("pid") and lo <= e["ts"] <= hi
-                 for pid, lo, hi in expansion):
-            totals["OFE_expansion"] += dur
         else:
-            totals["elementwise"] += dur
+            stage = next((st for pid, lo, hi, st in ranges
+                          if pid == e.get("pid") and lo <= e["ts"] <= hi),
+                         "elementwise")
+            totals[stage] += dur
         busy += dur
 
     if busy == 0.0:

@@ -340,7 +340,9 @@ def test_from_reference_carries_dtype_and_precision():
     jc = JFilterConfig(flow=JFlowConfig(dtype="bfloat16", precision="bfloat16"))
     cfg = from_reference(jc)
     assert (cfg.flow.dtype, cfg.flow.precision) == ("bfloat16", "bfloat16")
-    cfg.flow.check_ported()
+    # with no bound too (the split route, tests/test_torch_bf16_nobound.py)
+    nobound = from_reference(JFlowConfig(dtype="bfloat16", max_displacement=None))
+    assert (nobound.dtype, nobound.max_displacement) == ("bfloat16", None)
     with pytest.raises(ValueError, match="dtype"):
         FlowConfig(dtype="float16")
 

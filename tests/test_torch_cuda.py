@@ -359,6 +359,28 @@ def test_denoise_card_matches_cpu(dev, tap_mode, presmooth, bf16):
     assert 10 * np.log10(peak * peak / max(mse, 1e-30)) >= 55
 
 
+@pytest.mark.parametrize("fields", [
+    {}, {"tap_mode": "compose", "symmetric_adjacent": True,
+         "precision": "bfloat16"}], ids=["solve_bf16_nobound", "fast_nobound"])
+def test_bf16_nobound_denoise_on_the_card(dev, fields):
+    # the split route: K-uf once a level and iteration of every solve (8
+    # taps a pass in solve mode, one adjacent solve in symmetric compose;
+    # 2 levels in the Z pass, 1 in the Y and X passes' 12 x 64 planes; 3
+    # iterations), no other kernel; the card within 55 dB of the CPU
+    cfg = FilterConfig(sigma=(1.0, 1.0, 1.0), flow=FlowConfig(
+        dtype="bfloat16", max_displacement=None, levels=1, **fields))
+    vol = _blob_like((12, 64, 64), 2)
+    K.reset_launches()
+    on_card = denoise(vol, cfg).cpu().numpy()
+    want = dict.fromkeys(K.LAUNCHES, 0)
+    want["uf"] = 3 * (1 if fields else 8) * (2 + 1 + 1)
+    assert K.LAUNCHES == want
+    on_cpu = denoise(vol, cfg, device="cpu").numpy()
+    mse = np.mean((on_card.astype(np.float64) - on_cpu) ** 2)
+    peak = on_cpu.max() - on_cpu.min()
+    assert 10 * np.log10(peak * peak / max(mse, 1e-30)) >= 55
+
+
 def _blob_like(shape, seed):
     r = np.random.default_rng(seed)
     z, y, x = (np.arange(s).reshape([-1 if a == i else 1 for a in range(3)])

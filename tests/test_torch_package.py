@@ -1,7 +1,7 @@
 """Package-level properties of the port: it imports neither JAX nor the JAX
-package, its CLI refuses what it has not ported and never drops to the CPU,
-its configuration round-trips the JAX package's, and its kernels are built
-for Hopper (sm_90a)."""
+package, its CLI runs every flag combination of the JAX CLI and never drops
+to the CPU, its configuration round-trips the JAX package's, and its
+kernels are built for Hopper (sm_90a)."""
 
 import dataclasses
 import subprocess
@@ -25,6 +25,7 @@ from flowdenoising_tpu_torch.ops.cuda.sample import displace_sample
 from flowdenoising_tpu_torch.ops.cuda.uf import update_flow
 from flowdenoising_tpu_torch.ops.cuda.um import update_matrices
 from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
+from flowdenoising_tpu_torch.ops.farneback import farneback_flow
 
 torch.set_num_threads(1)
 
@@ -65,23 +66,15 @@ def test_default_device_cuda_raises_without_cuda(mrc_in, tmp_path):
     assert not (tmp_path / "out.mrc").exists()
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--max_displacement", "0", "--dtype", "bfloat16"], "A9"),
-    (["--max_displacement", "0", "--dtype", "bfloat16", "--tap_flow",
-      "compose"], "A9"),
-])
-def test_unported_flags_exit_naming_roadmap_item(flags, item, mrc_in, tmp_path):
-    with pytest.raises(SystemExit, match=item):
-        cli.main(["-i", str(mrc_in), "-o", str(tmp_path / "o.mrc"),
-                  "--device", "cpu", *flags])
-
-
 @pytest.mark.parametrize("flags", [
     ["--precision", "bfloat16"], ["--dtype", "bfloat16"],
-    ["--max_displacement", "0", "--precision", "bfloat16"]])
+    ["--max_displacement", "0", "--precision", "bfloat16"],
+    ["--max_displacement", "0", "--dtype", "bfloat16"],
+    ["--max_displacement", "0", "--dtype", "bfloat16", "--tap_flow", "compose"]])
 def test_bf16_flags_run(flags, mrc_in, tmp_path):
     # ported (ROADMAP A9); precision bfloat16 with no bound is the float32
-    # path, as in the JAX package
+    # path, as in the JAX package; dtype bfloat16 with no bound the split
+    # iteration in bf16 (tests/test_torch_bf16_nobound.py)
     out = tmp_path / "o.mrc"
     assert cli.main(["-i", str(mrc_in), "-o", str(out), "--device", "cpu",
                      "--max_displacement", "4", *flags]) == 0
@@ -99,14 +92,21 @@ def test_bad_auto_flag_values_exit(flags, message, mrc_in, tmp_path):
 
 
 def test_library_refuses_unported_settings():
-    with pytest.raises(NotImplementedError, match="A9"):
-        FlowConfig(dtype="bfloat16", max_displacement=None).check_ported()
-    FlowConfig(dtype="bfloat16", precision="bfloat16").check_ported()  # A9
-    FlowConfig(precision="bfloat16", max_displacement=None).check_ported()
-    FlowConfig(presmooth=1.0).check_ported()   # ported (ROADMAP A8)
-    FlowConfig().check_ported()
-    FlowConfig(tap_mode="compose", symmetric_adjacent=True,
-               adjacent_displacement=2).check_ported()
+    # nothing is left unported (ROADMAP A9's bf16 with no bound was the
+    # last): the library runs every setting, and a flow of a plain pair
+    # comes back finite and float32
+    r = np.random.default_rng(0)
+    ref = torch.from_numpy(r.normal(size=(2, 40, 40)).astype(np.float32) * 50)
+    tgt = torch.roll(ref, 1, dims=-1)
+    for cfg in (FlowConfig(dtype="bfloat16", max_displacement=None),
+                FlowConfig(dtype="bfloat16", precision="bfloat16"),
+                FlowConfig(precision="bfloat16", max_displacement=None),
+                FlowConfig(presmooth=1.0), FlowConfig(),
+                FlowConfig(tap_mode="compose", symmetric_adjacent=True,
+                           adjacent_displacement=2)):
+        flow = farneback_flow(ref, tgt, cfg)
+        assert flow.shape == (2, 40, 40, 2) and flow.dtype == torch.float32
+        assert bool(flow.isfinite().all()), cfg
 
 
 @pytest.mark.parametrize("jcfg", [

@@ -93,6 +93,32 @@ def test_measured_report_groups_kernels(tmp_path, caplog):
     assert "MEASURED" in caplog.text
 
 
+def test_measured_report_reads_the_split_routes_ranges(tmp_path):
+    # a bf16 pass with no bound: its phase 1 (and compose chain) and its
+    # gathers are plain PyTorch kernels inside the OFE_solve and warping
+    # ranges; K-uf is OFE_solve by name
+    ew = ("void at::native::vectorized_elementwise_kernel<4, "
+          "at::native::CUDAFunctor_add<c10::BFloat16> >(int, float*)")
+    gather = "void at::native::_scatter_gather_elementwise_kernel<128, 8>(int)"
+    events = [
+        {"ph": "X", "cat": "gpu_user_annotation", "name": "OFE_solve",
+         "pid": 0, "tid": 7, "ts": 100.0, "dur": 900.0, "args": {}},
+        _kernel(ew, 100.0, 3_000_000),
+        _kernel(gather, 400.0, 1_000_000),
+        _kernel("void (anonymous namespace)::uf_kernel(float const*)", 1000.0,
+                500_000),
+        {"ph": "X", "cat": "gpu_user_annotation", "name": "warping",
+         "pid": 0, "tid": 7, "ts": 2000.0, "dur": 500.0, "args": {}},
+        _kernel(gather, 2000.0, 2_000_000),
+        _kernel(ew, 3000.0, 250_000),
+    ]
+    totals = measured_stage_report(_write(tmp_path, events))
+    want = {"OFE_solve": 4.5, "warping": 2.0, "OFE_expansion": 0.0,
+            "elementwise": 0.25, "async_copies": 0.0}
+    for key, secs in want.items():
+        assert totals[key] == pytest.approx(secs, abs=1e-12), key
+
+
 def test_measured_report_none_without_device_kernels(tmp_path):
     assert measured_stage_report(None) is None
     assert measured_stage_report(str(tmp_path / "missing.json")) is None
