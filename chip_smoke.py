@@ -64,12 +64,13 @@ Phases, one or more lines of output each (any failure exits non-zero):
                write must go through libfdio.  Then a warm timed run
                of ``denoise`` per path, which must equal the CLI's output, a
                torch.profiler run of solve and compose for the device-time
-               split, the cost of the -v 2 profiling, and the two stage
-               reports side by side.
+               split, the cost of the -v 2 profiling (auto_v2 and the two
+               no-bound paths), and the two stage reports side by side.
 5. e2e      -- a 24x96x96 volume through ``denoise`` on the card (kernels)
                and on the CPU (plain versions), in solve and in compose
                mode, presmoothed, and in the four bf16 paths: PSNR >= 55 dB
-               between them; the compose and fast outputs bit-identical.
+               between them; the compose, fast and both no-bound outputs
+               bit-identical.
 6. stream   -- the streamed, resumed and batched paths on phase 4's noisy
                volume (sigma 2, D 8, wrap unless named), each bit-identical
                to the in-memory CLI output of the same path and with the
@@ -892,6 +893,33 @@ def stage_report_launches(shape, cfg) -> dict:
     return n
 
 
+def v2_cost(what: str, vol, cfg) -> None:
+    """Print what -v 2's profiling costs the filter phase: a warm denoise
+    without and with traced_run, the trace export and the report's parse
+    included, and the parse alone."""
+    from flowdenoising_tpu_torch.core.pipeline import denoise
+    from flowdenoising_tpu_torch.utils import trace_report
+
+    parse = []
+
+    def traced():
+        with trace_report.traced_run() as state:
+            denoise(vol, cfg)
+            torch.cuda.synchronize()
+        try:
+            t0 = time.perf_counter()
+            trace_report.measured_stage_report(state["path"])
+            parse.append(time.perf_counter() - t0)
+        finally:
+            os.remove(state["path"])
+
+    plain_s = wall_s(lambda: denoise(vol, cfg))
+    traced_s = wall_s(traced)
+    print(f"[4 main] {what} -v 2 profiling cost: warm denoise {plain_s:.3f} s "
+          f"without, {traced_s:.3f} s with traced_run (export and parse "
+          f"included; the parse {parse[0]:.3f} s)", flush=True)
+
+
 def wall_s(fn) -> float:
     """Host seconds of one ``fn()`` that ends in a synchronise."""
     torch.cuda.synchronize()
@@ -1128,6 +1156,8 @@ def phase_main(dev, size: int, seed: int) -> tuple[dict, dict]:
                   f"Mvoxel/s; peak device memory {peak / 2**30:.3f} GiB (model "
                   f"{model / 2**30:.3f}); warm vs CLI "
                   f"output max abs diff {rerun:.3g}", flush=True)
+            if name in V2_MEASURED:
+                v2_cost(f"{size}^3 {name}", vol, cfg)
             if name in SPLIT:
                 busy, wall, fams = device_split(lambda: denoise(vol, cfg))
                 split = "; ".join(f"{k} {ms:.1f} ms ({100 * ms / busy:.1f}%, {c})"
@@ -1199,7 +1229,6 @@ def path_auto_v2(dev, tmp: Path, src: Path, clean, noisy):
     second's)."""
     from flowdenoising_tpu_torch.config import FilterConfig, FlowConfig
     from flowdenoising_tpu_torch.core.autodisp import probe_displacement
-    from flowdenoising_tpu_torch.core.pipeline import denoise
     from flowdenoising_tpu_torch.io.mrc import read_mrc
     from flowdenoising_tpu_torch.ops import cuda as K
     from flowdenoising_tpu_torch.utils import stage_report, trace_report
@@ -1257,24 +1286,8 @@ def path_auto_v2(dev, tmp: Path, src: Path, clean, noisy):
           f"probe + denoise as expected; PSNR vs clean {p_in:.2f} -> {p_out:.2f} dB; "
           f"CLI run {cold:.2f} s (cold, incl. I/O, probe, profiling)", flush=True)
 
-    # what -v 2's profiling costs the filter phase: a warm denoise without
-    # and with traced_run (trace export and report parse included)
     vol = torch.from_numpy(noisy).to(dev)
-
-    def traced():
-        with trace_report.traced_run() as state:
-            denoise(vol, cfg)
-            torch.cuda.synchronize()
-        try:
-            measured_stage_report(state["path"])
-        finally:
-            os.remove(state["path"])
-
-    plain_s = wall_s(lambda: denoise(vol, cfg))
-    traced_s = wall_s(traced)
-    print(f"[4 main] {size}^3 -v 2 profiling cost: warm denoise {plain_s:.3f} s "
-          f"without, {traced_s:.3f} s with traced_run (export and parse "
-          "included)", flush=True)
+    v2_cost(f"{size}^3", vol, cfg)
     del vol
 
     # run 2: the trace read as empty, as on a CPU run, so the CLI falls back
@@ -1342,8 +1355,10 @@ def phase_e2e(dev, seed: int) -> None:
         require(p >= 55.0, f"{name}: card vs CPU PSNR {p:.2f} dB < 55")
         same = "bit-identical" if np.array_equal(on_card, on_cpu) else "not bit-identical"
         # the compose passes: K-compose-run on the card, its plain chain of
-        # steps on the CPU
-        require(same == "bit-identical" or name not in ("compose", "fast"),
+        # steps on the CPU; the no-bound paths: K-uf against its plain version
+        # and the same plain PyTorch phase 1 and gathers on both
+        require(same == "bit-identical" or name not in (
+            "compose", "fast", "solve_bf16_nobound", "fast_nobound"),
                 f"{name}: the card's output is not the CPU's bit for bit")
         print(f"[5 e2e] 24x96x96 {name} denoise, card (kernels) vs CPU (plain): "
               f"PSNR {p:.2f} dB (bar 55), {same}; max abs diff "

@@ -4,9 +4,11 @@
 // Replaces the Pallas TPU kernel flowdenoising_tpu/ops/pallas/
 // update_flow.py: _uf_kernel (reached through update_flow_pallas).  The
 // plain PyTorch version is flowdenoising_tpu_torch/ops/farneback.py:
-// update_flow_plain.  The port's solver runs both phases fused in K-umuf
-// (with the clamp off when there is no bound); this kernel serves the split
-// iteration that the -v 2 stage report times, as the JAX package's does.
+// update_flow_plain.  The port's float32 and bounded bf16 solvers run both
+// phases fused in K-umuf; this kernel is phase 2 of the split iteration
+// (ops/farneback.py: split_iterate), which the bf16 pass with no bound runs
+// at every level, after a bf16 phase 1 in plain PyTorch, as the JAX
+// package's TPU path does; the -v 2 stage report times it too.
 //
 // M (B, 5, H, W) -> flow (B, 2, H, W): the replicate-border box sum of each
 // channel over (2r+1)^2, r = winsize/2, times float32(1/winsize^2)

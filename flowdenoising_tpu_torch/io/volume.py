@@ -28,17 +28,17 @@ def is_mrc_output(path) -> bool:
 
 
 def read_volume(path: str | os.PathLike, memory_map: bool = False,
-                as_f32: bool = False, n_threads: int | None = None) -> np.ndarray:
+                as_f32: bool = False) -> np.ndarray:
     """Read a volume as (Z, Y, X).  MRC keeps its stored dtype (like
     mrcfile.open(...).data); TIFF is cast to float32 (flowdenoising.py:475).
 
     ``as_f32`` requests a float32 array directly; for MRC this takes the
-    native libfdio fused decode/convert path when built (one copy,
-    conversion on ``n_threads`` threads) instead of NumPy read-then-astype.
+    native libfdio fused decode/convert path when built (one copy, threaded
+    conversion) instead of NumPy read-then-astype.
     """
     if is_mrc_input(path):
         if as_f32 and not memory_map:
-            return read_mrc_f32(path, n_threads=n_threads)
+            return read_mrc_f32(path)
         data, _ = read_mrc(path, memory_map=memory_map)
         return data.astype(np.float32) if as_f32 and data.dtype != np.float32 else data
     data = read_tiff(path)

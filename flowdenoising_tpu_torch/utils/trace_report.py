@@ -28,6 +28,7 @@ logs the reconstruction of ``utils.stage_report`` instead.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import json
 import logging
@@ -88,10 +89,24 @@ def measured_stage_report(path: str) -> dict[str, float] | None:
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
     spans = [e for e in events if e.get("ph") == "X"]
-    ranges = [(e.get("pid"), e["ts"], e["ts"] + e.get("dur", 0),
-               _RANGES[e.get("name")])
-              for e in spans if e.get("cat") == "gpu_user_annotation"
-              and e.get("name") in _RANGES]
+    # the device spans of the port's ranges, which do not nest: per pid,
+    # sorted by start, so a kernel's range is found by bisection
+    ranges = {}
+    for e in spans:
+        if e.get("cat") == "gpu_user_annotation" and e.get("name") in _RANGES:
+            ranges.setdefault(e.get("pid"), []).append(
+                (e["ts"], e["ts"] + e.get("dur", 0), _RANGES[e["name"]]))
+    starts = {}
+    for pid, rs in ranges.items():
+        rs.sort()
+        starts[pid] = [lo for lo, _, _ in rs]
+
+    def range_stage(e):
+        rs = ranges.get(e.get("pid"))
+        if not rs:
+            return "elementwise"
+        i = bisect.bisect_right(starts[e.get("pid")], e["ts"]) - 1
+        return rs[i][2] if i >= 0 and e["ts"] <= rs[i][1] else "elementwise"
 
     totals = {"OFE_solve": 0.0, "warping": 0.0, "OFE_expansion": 0.0,
               "elementwise": 0.0, "async_copies": 0.0}
@@ -110,10 +125,7 @@ def measured_stage_report(path: str) -> dict[str, float] | None:
         elif _WARP.search(name):
             totals["warping"] += dur
         else:
-            stage = next((st for pid, lo, hi, st in ranges
-                          if pid == e.get("pid") and lo <= e["ts"] <= hi),
-                         "elementwise")
-            totals[stage] += dur
+            totals[range_stage(e)] += dur
         busy += dur
 
     if busy == 0.0:

@@ -2,11 +2,11 @@
 the data that ``flowdenoising_tpu_torch/core/memory.py``'s slab model is
 fitted to.
 
-    python3 scripts/torch_memory_peaks.py [--json peaks.jsonl] [--forms NAME ...]
+    python3 scripts/torch_memory_peaks.py [--json peaks.jsonl]
 
 For each pass form (the no-flow Gaussian; solve at D 8, 48 and no bound;
 solve presmoothed; compose, symmetric compose; the bf16 forms, with a
-bound and without one) or each of ``--forms`` and each
+bound and without one) and each
 padded window (n + 2*ks2, h, w) at sigma 2 (ks2 8), one pass over the
 window already on the card: the peak of ``torch.cuda.max_memory_allocated``
 above what was allocated before the window was made, so the window itself
@@ -54,8 +54,6 @@ WINDOWS = [(64, 256, 256), (256, 256, 256), (32, 512, 512), (128, 512, 512),
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None, help="also write the lines here")
-    ap.add_argument("--forms", nargs="+", choices=sorted(FORMS),
-                    default=list(FORMS), help="measure only these forms")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -87,8 +85,7 @@ def main() -> int:
     r = np.random.default_rng(0)
     for n, h, w in WINDOWS:
         host = (r.normal(size=(n + 2 * ks2, h, w)) * 40 + 100).astype(np.float32)
-        for name in args.forms:
-            fields = FORMS[name]
+        for name, fields in FORMS.items():
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             base = torch.cuda.memory_allocated()
@@ -106,7 +103,7 @@ def main() -> int:
     # slabs against the whole pass, on one window of 256 output planes
     host = (r.normal(size=(256 + 2 * ks2, 256, 256)) * 40 + 100).astype(np.float32)
     window = torch.from_numpy(host).to(dev)
-    for name in [f for f in ("gaussian", "solve", "compose") if f in args.forms]:
+    for name in ("gaussian", "solve", "compose"):
         whole = run(FORMS[name], window)
         for slab in (76, 64):
             parts = [run(FORMS[name], window[s:s + slab + 2 * ks2])

@@ -69,7 +69,7 @@ def _native_run(tmp_path, vol, name):
     runtime.reset_native_calls()
     p = tmp_path / name
     write_mrc(p, vol)
-    out = read_volume(p, as_f32=True, n_threads=3)
+    out = read_mrc_f32(p, n_threads=3)
     return p, out, dict(runtime.NATIVE_CALLS)
 
 

@@ -119,6 +119,32 @@ def test_measured_report_reads_the_split_routes_ranges(tmp_path):
         assert totals[key] == pytest.approx(secs, abs=1e-12), key
 
 
+def test_measured_report_finds_each_kernels_range(tmp_path):
+    # a thousand ranges on two devices, shuffled, with kernels at their
+    # ends, between them and on a device without ranges; each kernel lands
+    # in the range around it on its own device
+    ew = "void at::native::vectorized_elementwise_kernel<4>(int, float*)"
+    names = ["OFE_solve", "warping", "OFE_expansion"]
+    rng = np.random.default_rng(0)
+    events, want = [], dict.fromkeys(STAGES, 0.0)
+    for i in range(1000):
+        pid, lo = i % 2, 100.0 * (i // 2)
+        stage = names[i % 3]
+        events.append({"ph": "X", "cat": "gpu_user_annotation", "name": stage,
+                       "pid": pid, "tid": 7, "ts": lo, "dur": 60.0, "args": {}})
+        for ts, where in ((lo, stage), (lo + 60.0, stage),
+                          (lo + 80.0, "elementwise")):
+            dur = int(rng.integers(1, 1000))
+            events.append(_kernel(ew, ts, dur, pid=pid))
+            want[where] += dur / 1e6
+        events.append(_kernel(ew, lo + 30.0, 7, pid=2))
+        want["elementwise"] += 7 / 1e6
+    events = [events[i] for i in rng.permutation(len(events))]
+    totals = measured_stage_report(_write(tmp_path, events))
+    for key, secs in want.items():
+        assert totals[key] == pytest.approx(secs, abs=1e-9), key
+
+
 def test_measured_report_none_without_device_kernels(tmp_path):
     assert measured_stage_report(None) is None
     assert measured_stage_report(str(tmp_path / "missing.json")) is None
