@@ -95,7 +95,9 @@
 // Built with -fmad=false so the arithmetic rounds as the plain version's
 // separate multiplies and adds do.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
+
+#include <dlfcn.h>
 
 #include <cstdint>
 
@@ -196,8 +198,8 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
 // src where its r1 is read.  It is umuf_kernel's loop over again: the
 // gather kernels calling this function, or one kernel template serving
 // both routes, ran the gather route 2-11% slower on the card
-// (scripts/torch_umuf_ablate.py --vs against the PR 4 body), so the gather
-// kernel keeps its own.
+// (scripts/torch_umuf_ablate.py --vs against a build of the gather kernel
+// as it stands), so the gather kernel keeps its own.
 template <typename Src>
 __device__ __forceinline__ void umuf_tile(
     const float* __restrict__ R0, const Src& src, const float* __restrict__ U,
@@ -366,8 +368,9 @@ umuf_staged_kernel(const __grid_constant__ CUtensorMap r1_map,
             TX, sw);
 }
 
-// The driver's tensor-map encoder, fetched through the runtime (no link
-// against the driver library); null where the driver has none.
+// libcuda's tensor-map encoder, cuTensorMapEncodeTiled, looked up at run
+// time in the libcuda the CUDA runtime has loaded, so the library needs no
+// link against it; null where it is missing.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
@@ -377,17 +380,9 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
 
 EncodeTiled encode_tiled() {
   static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
                : nullptr;
   }();
   return fn;
