@@ -26,9 +26,8 @@ Phases, one or more lines of output each (any failure exits non-zero):
                K-compose-bf16 (with and without the bf16 carry rounding) and
                K-um-bf16, each equal to its plain version bit for bit, timed
                beside its float32 form, bound at bf16 source width;
-               K-umuf-bf16 at every level call the bf16 paths run packed at
-               256^3 and 512^3, on both its routes (gather, the paths';
-               staged, r1's window in shared memory), timed in turns.  Last
+               K-umuf-bf16 also at every other level call the bf16 paths
+               run packed at 256^3 and 512^3, bit-identical there too.  Last
                K-compose-run and K-compose-run-bf16, the whole compose pass
                in one launch (the form the compose paths run), bit-identical
                to compose_run_plain at D 8 and None, with and without the
@@ -688,19 +687,12 @@ def compose_runs(r, t, n: int = 256) -> dict:
     return res
 
 
-def turns(fns: dict, reps: int) -> dict:
-    """Device ms of each callable of ``fns``, timed in turns (the names in
-    order, then in reverse): {name: [ms, ms]}."""
-    times = {name: [] for name in fns}
-    for name in [*fns, *reversed(fns)]:
-        times[name].append(cuda_ms(fns[name], reps=reps))
-    return times
-
-
 def pair_ms(f32_fn, bf16_fn, reps: int) -> tuple[float, float, str]:
     """Mean ms of a kernel's float32 and bf16 forms, timed in turns (f32,
     bf16, bf16, f32), and the four times as text."""
-    times = turns({"f32": f32_fn, "bf16": bf16_fn}, reps)
+    times = {"f32": [], "bf16": []}
+    for form in ("f32", "bf16", "bf16", "f32"):
+        times[form].append(cuda_ms(f32_fn if form == "f32" else bf16_fn, reps=reps))
     text = "; ".join(f"{k} " + ", ".join(f"{v:.4f}" for v in vs) for k, vs in times.items())
     return sum(times["f32"]) / 2, sum(times["bf16"]) / 2, text
 
@@ -713,7 +705,7 @@ def packed_forms(r, t, banded_flow, umuf_operands) -> dict:
     from flowdenoising_tpu_torch.ops import farneback as F
     from flowdenoising_tpu_torch.ops.cuda.compose import (
         compose_tap, compose_tap_plain)
-    from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf, umuf_iterate
+    from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
 
     bf16 = torch.bfloat16
     res = {}
@@ -725,66 +717,48 @@ def packed_forms(r, t, banded_flow, umuf_operands) -> dict:
                 f"version (max abs err {e})")
         return e
 
-    # the float32 form with the bf16 border ramp that a bf16 pass's tiny
-    # 32^2 level runs
+    # K-umuf-bf16: the main path's largest call, level 0 of a 256^3 pass;
+    # and the float32 form with the bf16 border ramp that a bf16 pass's
+    # tiny 32^2 level runs
     rt, ft = umuf_operands(64, 32, 32, 2)
-    err = same("K-umuf 32^2 d=2 with the bf16 ramp",
-               umuf_iterate(rt[0], rt[1], ft, 3, 2, 5, ramp_bf16=True),
-               F.umuf_iterate_plain(rt[0], rt[1], ft, 3, 2, 5, ramp_bf16=True))
+    e_tiny = same("K-umuf 32^2 d=2 with the bf16 ramp",
+                  umuf_iterate(rt[0], rt[1], ft, 3, 2, 5, ramp_bf16=True),
+                  F.umuf_iterate_plain(rt[0], rt[1], ft, 3, 2, 5, ramp_bf16=True))
     del rt, ft
-    # K-umuf-bf16 at every level call the bf16 paths run packed at 256^3 and
+    rr, flow = umuf_operands(256, 256, 256, 9)
+    r1b = rr[1].to(bf16)
+    e = same("K-umuf-bf16 (256,5,256,256) d=9",
+             umuf_iterate(rr[0], r1b, flow, 3, 9, 5),
+             F.umuf_iterate_plain(rr[0], r1b, flow, 3, 9, 5))
+    f32_ms, ms, times = pair_ms(lambda: umuf_iterate(rr[0], rr[1], flow, 3, 9, 5),
+                                lambda: umuf_iterate(rr[0], r1b, flow, 3, 9, 5), 5)
+    pms = cuda_ms(lambda: F.umuf_iterate_plain(rr[0], r1b, flow, 3, 9, 5),
+                  reps=2, warmup=1)
+    # r0 (float32) and r1 (bf16) read once, the flow read and written once
+    px = flow.numel() // 2
+    bms, by = bound(4 * (rr[0].numel() + 2 * flow.numel()) + 2 * r1b.numel(),
+                    3 * umuf_flops(5) * px)
+    print(f"[3 kernels] K-umuf-bf16 main-path call (256,5,256,256) d=9 ws=5 "
+          f"iters=3, r1 bf16: max_abs_err {e:.3g} (bit-identical; the float32 "
+          f"form with the bf16 ramp at (64,5,32,32) d=2: {e_tiny:.3g}), kernel "
+          f"{ms:.4f} ms, float32 form {f32_ms:.4f} ms ({times}), plain "
+          f"{pms:.4f} ms, bound {bms:.4f} ms ({by}, 46 B/px)", flush=True)
+    del rr, flow, r1b
+    # and at every other level call the bf16 paths run packed at 256^3 and
     # 512^3 (batch = the edge, d_k = 9, 5, 3, 2 at D 8) and at the adjacent
-    # bound's level 0 (d 5): both routes bit-identical to the plain version,
-    # timed in turns -- the gather route (every path's), the staged route
-    # (r1's window in shared memory) and the float32 form
-    main = None
-    for b, size, d in ((256, 256, 9), (256, 128, 5), (256, 64, 3), (256, 256, 5),
-                       (512, 512, 9), (512, 256, 5), (512, 128, 3), (512, 64, 2),
-                       (512, 512, 5)):
+    # bound's level 0 (d 5): bit-identical to the plain version
+    for b, size, d in ((256, 128, 5), (256, 64, 3), (256, 256, 5), (512, 512, 9),
+                       (512, 256, 5), (512, 128, 3), (512, 64, 2), (512, 512, 5)):
         rr, flow = umuf_operands(b, size, size, d)
         r1b = rr[1].to(bf16)
-        ref = F.umuf_iterate_plain(rr[0], r1b, flow, 3, d, 5)
-        gather, staged = plan_umuf(size, size, 5, 3), plan_umuf(size, size, 5, 3,
-                                                               stage_d=d)
-        require(gather.route == "gather" and staged.route == "staged",
-                f"K-umuf-bf16 ({b},5,{size},{size}) d={d}: routes {gather.route}, "
-                f"{staged.route}")
-        what = f"K-umuf-bf16 ({b},5,{size},{size}) d={d}"
-        err = max(err, same(what + " gather", umuf_iterate(rr[0], r1b, flow, 3, d, 5),
-                            ref),
-                  same(what + " staged", umuf_iterate(rr[0], r1b, flow, 3, d, 5,
-                                                      stage_r1=True), ref))
-        del ref
-        times = turns({"gather": lambda: umuf_iterate(rr[0], r1b, flow, 3, d, 5),
-                       "staged": lambda: umuf_iterate(rr[0], r1b, flow, 3, d, 5,
-                                                      stage_r1=True),
-                       "float32": lambda: umuf_iterate(rr[0], rr[1], flow, 3, d, 5)},
-                      reps=5 if b * size < 512 * 512 else 3)
-        # r0 (float32) and r1 (bf16) read once, the flow read and written once
-        px = flow.numel() // 2
-        bms, by = bound(4 * (rr[0].numel() + 2 * flow.numel()) + 2 * r1b.numel(),
-                        3 * umuf_flops(5) * px)
-        ms = {k: sum(v) / len(v) for k, v in times.items()}
-        print(f"[3 kernels] {what} ws=5 iters=3, r1 bf16: both routes "
-              f"bit-identical; the path's route gather (tile {gather.tile_y}x"
-              f"{gather.tile_x}, {gather.threads} threads, {gather.smem} B) "
-              f"{ms['gather']:.4f} ms, staged (tile {staged.tile_y}x{staged.tile_x}, "
-              f"window {staged.window[0]}x{staged.window[1]}, {staged.threads} "
-              f"threads, {staged.smem} B) {ms['staged']:.4f} ms, float32 form "
-              f"{ms['float32']:.4f} ms (in turns: " + "; ".join(
-                  f"{k} " + ", ".join(f"{v:.4f}" for v in vs) for k, vs in times.items())
-              + f"); bound {bms:.4f} ms ({by}, 46 B/px)", flush=True)
-        if main is None:
-            # the main path's largest call, level 0 of a 256^3 pass
-            pms = cuda_ms(lambda: F.umuf_iterate_plain(rr[0], r1b, flow, 3, d, 5),
-                          reps=2, warmup=1)
-            print(f"[3 kernels] K-umuf-bf16 main-path call (256,5,256,256) d=9: "
-                  f"plain {pms:.4f} ms", flush=True)
-            main = dict(ms=ms["gather"], plain_ms=pms, bound_ms=bms, bound_by=by,
-                        library_ms=None, path_route="gather", staged_ms=ms["staged"],
-                        float32_ms=ms["float32"])
+        e = max(e, same(f"K-umuf-bf16 ({b},5,{size},{size}) d={d}",
+                        umuf_iterate(rr[0], r1b, flow, 3, d, 5),
+                        F.umuf_iterate_plain(rr[0], r1b, flow, 3, d, 5)))
         del rr, flow, r1b
-    res["umuf_bf16"] = dict(max_abs_err=err, **main)
+    print(f"[3 kernels] K-umuf-bf16 at the other packed level calls of the "
+          f"256^3 and 512^3 paths: bit-identical (max_abs_err {e:.3g})", flush=True)
+    res["umuf_bf16"] = dict(max_abs_err=max(e, e_tiny), ms=ms, plain_ms=pms,
+                            bound_ms=bms, bound_by=by, library_ms=None)
 
     # K-compose-bf16: the main path's call at 256^3 (n 256, a 271-plane
     # link stack and the 272-plane padded stack at a mid-run tap's
@@ -871,7 +845,6 @@ def expected_launches(shape, cfg, windows=(1, 1, 1), passes=(0, 1, 2)) -> dict:
     packed form (umuf_bf16) on the levels where the JAX package packs
     (``_packed_at_level``: --precision bfloat16, outside the tiny route).
     K-compose-run runs packed (compose_run_bf16) with --precision bfloat16.
-    K-umuf-bf16 runs on its gather route (umuf_bf16_gather), never staged.
     A bf16 pass with no bound (the split route) launches K-uf once a level
     and iteration of every solve and no other kernel (its phase 1, warps
     and compose chain are plain PyTorch); else a denoise never launches
@@ -905,12 +878,9 @@ def expected_launches(shape, cfg, windows=(1, 1, 1), passes=(0, 1, 2)) -> dict:
             n["uf"] += solves * len(sizes) * f.iterations
             continue
         for k, (hk, wk) in enumerate(sizes):
-            # the packed form on its gather route, as every path runs it
-            forms = (("umuf_bf16", "umuf_bf16_gather")
-                     if _packed_at_level(adj, k, hk, wk) else ("umuf",))
-            for form in forms:
-                n[form] += solves * len(plan_umuf(hk, wk, f.winsize,
-                                                  f.iterations).launches)
+            form = "umuf_bf16" if _packed_at_level(adj, k, hk, wk) else "umuf"
+            n[form] += solves * len(plan_umuf(hk, wk, f.winsize,
+                                              f.iterations).launches)
         if f.tap_mode == "compose":
             n[compose] += windows[i] if n_taps else 0
         else:
@@ -979,7 +949,6 @@ def kernel_family(name: str) -> str:
     low = name.lower()
     for key, family in (("compose_run_kernel", "K-compose-run"),
                         ("compose_kernel", "K-compose"), ("umuf_kernel", "K-umuf"),
-                        ("umuf_staged_kernel", "K-umuf"),
                         ("uf_kernel", "K-uf"), ("um_kernel", "K-um"),
                         ("sample_kernel", "K-sample"), ("memcpy", "memcpy"),
                         ("memset", "memset"), ("gemm", "matmul (resize einsums)"),
@@ -2040,15 +2009,11 @@ def main() -> int:
     # "paths": the launches of every phase 4 path (the reconstruction as
     # "stage_report") and every sharded path that runs the kernel
     runs = {**counts, **sharded}
-    # K-umuf-bf16's launches on each path also by route ("routes")
-    routes = {p: {"gather": n["umuf_bf16_gather"], "staged": n["umuf_bf16_staged"]}
-              for p, n in runs.items() if n["umuf_bf16"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": counts[path][name], **kern[name],
          "paths": {path: counts[path][name],
-                   **{p: n[name] for p, n in runs.items() if n[name]}},
-         **({"routes": routes} if name == "umuf_bf16" else {})}
+                   **{p: n[name] for p, n in runs.items() if n[name]}}}
         for name, (source, replaces, path) in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,11 +6,9 @@
 // update_matrices_plain and update_flow_plain.  The arithmetic is written in
 // the plain versions' order, for a build with -fmad=false.
 //
-// Phase 1 is a template on where it reads r1: its planes in device memory
-// (R1Planes), float32, or bfloat16 in the packed forms of K-umuf and K-um
-// (--precision bfloat16), or K-umuf-bf16's window of them in shared memory
-// (R1Window).  A bfloat16 texel is widened exactly (bf16.cuh) and the
-// arithmetic is float32 from there, the same wherever the texel was read.
+// Phase 1 is a template on the element type of r1: float32, or bfloat16 in
+// the packed forms of K-umuf and K-um (--precision bfloat16), which widen
+// each r1 texel exactly (bf16.cuh) and compute in float32 from there.
 
 #pragma once
 
@@ -47,39 +45,9 @@ __device__ __forceinline__ double edge_weight(int i, int n) {
   return s;
 }
 
-// Where phase 1 reads r1's texels: the (5, H, W) planes of one batch entry
-// in device memory, through the read-only path ...
-template <typename T1>
-struct R1Planes {
-  const T1* p;
-  long long hw;
-  int W;
-  __device__ __forceinline__ long long row(int y) const {
-    return (long long)y * W;
-  }
-  __device__ __forceinline__ int col(int x) const { return x; }
-  __device__ __forceinline__ float at(int c, long long off) const {
-    return load_f32(p + c * hw + off);
-  }
-};
-
-// ... or a block's window of them staged in shared memory (K-umuf-bf16's
-// staged route, umuf.cu): 5 planes of `plane` texels, `stride` a row, whose
-// texel (0, 0) is plane pixel (oy, ox).  Every index phase 1 forms lies in
-// the window; the kernel's plan makes it so.
-struct R1Window {
-  const __nv_bfloat16* s;
-  int plane, stride, oy, ox;
-  __device__ __forceinline__ int row(int y) const { return (y - oy) * stride; }
-  __device__ __forceinline__ int col(int x) const { return x - ox; }
-  __device__ __forceinline__ float at(int c, int off) const {
-    return __bfloat162float(s[c * plane + off]);
-  }
-};
-
 // Phase 1: M = [G11, G12, G22, h1, h2] at plane pixel (x, y) of one batch
-// entry.  R0: that entry's (5, H, W) expansion; src: where its r1 texels
-// are read (R1Planes or R1Window); hw = H * W.
+// entry.  R0, R1: that entry's (5, H, W) expansions; U, V: its flow planes;
+// hw = H * W.
 //
 // Sample the five channels of r1 bilinearly at (x + u, y + v), u and v
 // clamped to +-d (no clamp when `clamp` is 0), replicate borders; mask
@@ -89,14 +57,12 @@ struct R1Window {
 // bfloat16 when `ramp_bf16` is set (the JAX package's split iteration on a
 // bf16 pass's tiny levels holds the ramp map in the pass dtype).  (dx, dy)
 // is the flow at (x, y): M depends on the flow at its own pixel only.
-// With the clamp, the texels read lie in rows y - ceil(d) .. y + ceil(d) +
-// 1 and the same columns around x, clamped to the plane.
-template <typename Src>
+template <typename T1>
 __device__ __forceinline__ void matrices_from(const float* __restrict__ R0,
-                                              const Src& src, float dx,
-                                              float dy, int x, int y, int H,
-                                              int W, long long hw, float d,
-                                              int clamp, int ramp_bf16,
+                                              const T1* __restrict__ R1,
+                                              float dx, float dy, int x, int y,
+                                              int H, int W, long long hw,
+                                              float d, int clamp, int ramp_bf16,
                                               float m[5]) {
   const long long p = (long long)y * W + x;
   const float fx1 = floorf((float)x + dx);
@@ -121,18 +87,19 @@ __device__ __forceinline__ void matrices_from(const float* __restrict__ R0,
   y0f = fminf(fmaxf(y0f, -1.0f), (float)H);
   const int x0 = (int)x0f;
   const int y0 = (int)y0f;
-  const int xa = src.col(min(max(x0, 0), W - 1));
-  const int xb = src.col(min(max(x0 + 1, 0), W - 1));
-  const auto ra = src.row(min(max(y0, 0), H - 1));
-  const auto rb = src.row(min(max(y0 + 1, 0), H - 1));
+  const int xa = min(max(x0, 0), W - 1);
+  const int xb = min(max(x0 + 1, 0), W - 1);
+  const long long ra = (long long)min(max(y0, 0), H - 1) * W;
+  const long long rb = (long long)min(max(y0 + 1, 0), H - 1) * W;
 
   float s[5];
 #pragma unroll
   for (int c = 0; c < 5; ++c) {
-    const float v00 = src.at(c, ra + xa);
-    const float v01 = src.at(c, ra + xb);
-    const float v10 = src.at(c, rb + xa);
-    const float v11 = src.at(c, rb + xb);
+    const T1* q = R1 + c * hw;
+    const float v00 = load_f32(q + ra + xa);
+    const float v01 = load_f32(q + ra + xb);
+    const float v10 = load_f32(q + rb + xa);
+    const float v11 = load_f32(q + rb + xb);
     const float top = v00 + (v01 - v00) * tx;
     const float bot = v10 + (v11 - v10) * tx;
     s[c] = top + (bot - top) * ty;
@@ -173,8 +140,7 @@ __device__ __forceinline__ void matrices_at(const float* __restrict__ R0,
                                             long long hw, float d, int clamp,
                                             int ramp_bf16, float m[5]) {
   const long long p = (long long)y * W + x;
-  matrices_from(R0, R1Planes<T1>{R1, hw, W}, U[p], V[p], x, y, H, W, hw, d,
-                clamp, ramp_bf16, m);
+  matrices_from(R0, R1, U[p], V[p], x, y, H, W, hw, d, clamp, ramp_bf16, m);
 }
 
 // Calls f(i, j) for every cell of a rows x cols rectangle, the cells

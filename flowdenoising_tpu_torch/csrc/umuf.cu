@@ -56,208 +56,44 @@
 //   winsize, iterations): the largest k whose tile fits two blocks on an SM
 //   with no more than twice the tile's phase-1 work; the iterations then run
 //   as ceil(iterations / k) launches.
-// - The float32 form reads r1's 20 bilinear taps a pixel through __ldg, from
-//   L1 and L2: a window of float32 r1 in shared memory would take tens of KB
-//   more per tile and halve the blocks an SM holds.  Staging the flow in
-//   shared memory first, prefetching the region's r0 and r1 into L2, two
-//   cells a thread at once and 384-thread blocks were each measured and
-//   gained nothing (PERF.md).
+// - r1's 20 bilinear taps a pixel are read through __ldg, from L1 and L2:
+//   a window of float32 r1 in shared memory would take tens of KB more per
+//   tile and halve the blocks an SM holds.  Staging the flow in shared
+//   memory first, prefetching the region's r0 and r1 into L2, two cells a
+//   thread at once and 384-thread blocks were each measured and gained
+//   nothing (PERF.md).
 // - No tensor cores: the only product in the function is the box sum's
 //   0/1 band (the TPU kernel's MXU box matmul), and TF32 would round M to a
 //   10-bit mantissa, which breaks the bit equality and can miss the JAX
 //   package's tolerance.
 // - The packed form (K-umuf-bf16, --precision bfloat16: the TPU kernel's
-//   `packed` r1, umuf.py:262-263) reads r1 as bfloat16 (bf16.cuh): 10 B a
-//   pixel instead of 20, so the function's bytes fall from 56 to 46 B a
-//   pixel.  It has two routes, bit-identical to each other and to the
-//   plain version, which phase 1 reaches through farneback.cuh's R1Planes
-//   and R1Window:
-//   - gather (fdt_umuf_bf16): the float32 form's body and plan with r1
-//     read as bfloat16 through __ldg.  Every path runs it.
-//   - staged (fdt_umuf_bf16_staged): at the half width, r1's window for a
-//     tile -- the first iteration's region grown by ceil(d) + 1, every
-//     texel phase 1 can read -- fits beside M and the flow carry with two
-//     blocks an SM (101,336 B at 256^2, d 9, a 32x32 tile).  One thread
-//     starts a TMA copy of it (one 3-D box: 5 planes) into shared memory
-//     and the block waits on an mbarrier; phase 1's taps are then shared
-//     loads.  On the card it was slower than the gather route at every
-//     shape where it fits (d 2-33, 64^2-512^2; ~1.87 against ~1.59 ms at
-//     the main call, PERF.md): the gather body's r1 taps cost ~0.2-0.3 ms
-//     of its time, while the window's copy (4.4x the tile's texels) costs
-//     ~0.3 ms and the tile halved to fit it ~0.2 ms more; a persistent
-//     block that copied the next tile's window during the last phase 2
-//     was slower still.  So the planner gives the gather route to every
-//     path (ops/cuda/umuf.py: plan_umuf) and the staged route runs where a
-//     caller asks for it.
-//   `ramp_bf16` rounds the border ramp to bfloat16, as a bf16 pass's tiny
-//   levels hold it in the JAX package (farneback.py: update_matrices,
-//   `scale` in r0.dtype).
+//   `packed` r1, umuf.py:262-263) is this kernel with r1 read as bfloat16
+//   (T1 = __nv_bfloat16, bf16.cuh): r1's 10 B per pixel instead of 20, so
+//   the function's bytes fall from 56 to 46 B per pixel, and the plan does
+//   not change.  At the half width r1's window for a tile does fit beside
+//   M and the flow carry with two blocks an SM, and a body that copied it
+//   into shared memory with TMA once a launch was measured on the card: it
+//   was bit-identical and 16-28% slower at every level the bf16 paths run
+//   packed (PERF.md).  The gathers of r1 cost less than the window's copy
+//   (4.4x the tile's texels at 256^2, d 9) and the smaller tile it needs,
+//   so r1 stays out of shared memory here too.  `ramp_bf16` rounds the
+//   border ramp to bfloat16, as a bf16 pass's tiny levels hold it in the
+//   JAX package (farneback.py: update_matrices, `scale` in r0.dtype).
 // Built with -fmad=false so the arithmetic rounds as the plain version's
 // separate multiplies and adds do.
-
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
-
-#include <dlfcn.h>
-
-#include <cstdint>
 
 #include "farneback.cuh"
 
 namespace {
 
-// Shared memory of one block, in bytes from the start of the dynamic
-// buffer: on the staged route r1's window (5 planes of bh x bw bfloat16,
-// the TMA box), then M (5 planes of (rh + r) x sw floats), when k > 1 the
-// flow carry (2 planes of rh x sw), and on the staged route the mbarrier
-// the copy completes on.  The gather route has no window (bh = bw = 0) and
-// no barrier.  ops/cuda/umuf.py: umuf_smem_bytes is the same formula.
-struct UmufSmem {
-  size_t m, carry, bar, total;
-};
-
-__host__ __device__ inline UmufSmem umuf_smem(int rh, int sw, int r, int k,
-                                              int bh, int bw) {
-  UmufSmem s;
-  s.m = (size_t)2 * 5 * bh * bw;
-  s.carry = s.m + sizeof(float) * 5 * (size_t)(rh + r) * sw;
-  const size_t end = s.carry + (k > 1 ? sizeof(float) * 2 * (size_t)rh * sw : 0);
-  s.bar = bw > 0 ? (end + 7) / 8 * 8 : end;
-  s.total = bw > 0 ? s.bar + 8 : end;
-  return s;
+// Shared memory of one block: M (5 planes of (rh + r) x sw floats) and,
+// when k > 1, the flow carry (2 planes of rh x sw).
+__host__ __device__ inline size_t umuf_smem_bytes(int rh, int sw, int r,
+                                                  int k) {
+  return sizeof(float) * ((size_t)5 * (rh + r) * sw +
+                          (k > 1 ? (size_t)2 * rh * sw : 0));
 }
 
-// The staged route's window of r1 for a TY x TX tile, k iterations, window
-// radius r and bound d: the first iteration's region (the tile grown by
-// k*r) grown by ceil(d) rows and columns on the low side and ceil(d) + 1
-// on the high side -- every texel phase 1 can read (farneback.cuh:
-// matrices_from).  The box that holds it starts at that region's low
-// corner clamped to the plane, its column moved down to a multiple of 8
-// (the card's copies fault at a box whose first column is odd, and 16-byte
-// steps are what TMA's rows are made of), so it is 7 columns wider, and its
-// width is a multiple of 8 texels; it may run past the plane's high edges
-// (TMA fills the part outside it, which no index reaches).
-__host__ __device__ inline int window_rows(int TY, int k, int r, int dw) {
-  return TY + 2 * k * r + 2 * dw + 1;
-}
-__host__ __device__ inline int window_cols(int TX, int k, int r, int dw) {
-  return (TX + 2 * k * r + 2 * dw + 1 + 7 + 7) / 8 * 8;
-}
-
-// ---- the copy: TMA into shared memory, completing on an mbarrier ----
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-  // make the initialised barrier visible to the copy engine
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// One 3-D box (columns, rows, planes) of the tensor `map` describes, from
-// (c0, c1, c2), into shared memory at dst; completes on bar.
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            int c0, int c1, int c2,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-// The staged kernel's k iterations of one output tile at (ty0, tx0) of a
-// batch entry, by the whole block: R0, U, V, Uo, Vo are the entry's planes,
-// src where its r1 is read.  It is umuf_kernel's loop over again: the
-// gather kernels calling this function, or one kernel template serving
-// both routes, ran the gather route 2-11% slower on the card
-// (scripts/torch_umuf_ablate.py --vs against a build of the gather kernel
-// as it stands), so the gather kernel keeps its own.
-template <typename Src>
-__device__ __forceinline__ void umuf_tile(
-    const float* __restrict__ R0, const Src& src, const float* __restrict__ U,
-    const float* __restrict__ V, float* __restrict__ Uo,
-    float* __restrict__ Vo, float* m_s, float* fu, float* fv, int H, int W,
-    float d, int clamp, int ramp_bf16, int r, float inv_ws2, int k, int ty0,
-    int tx0, int TY, int TX, int sw) {
-  const long long hw = (long long)H * W;
-  const int mplane = (min(TY + 2 * k * r, H) + r) * sw;
-  // the output tile and the first iteration's region, clamped to the plane
-  const int ty1 = min(ty0 + TY, H) - 1, tx1 = min(tx0 + TX, W) - 1;
-  const int ry0 = max(ty0 - k * r, 0), rx0 = max(tx0 - k * r, 0);
-
-  for (int j = 0; j < k; ++j) {
-    // ---- phase 1: M on the tile grown by (k - j) * r ----
-    const int mc = (k - j) * r;
-    const int my0 = max(ty0 - mc, 0), my1 = min(ty1 + mc, H - 1);
-    const int mx0 = max(tx0 - mc, 0), mx1 = min(tx1 + mc, W - 1);
-    for_cells(my1 - my0 + 1, mx1 - mx0 + 1, [&](int ly, int lx) {
-      const int y = my0 + ly, x = mx0 + lx;
-      float dx, dy;
-      if (j == 0) {
-        const long long p = (long long)y * W + x;
-        dx = U[p];
-        dy = V[p];
-      } else {
-        const int q = (y - ry0) * sw + (x - rx0);
-        dx = fu[q];
-        dy = fv[q];
-      }
-      float m[5];
-      matrices_from(R0, src, dx, dy, x, y, H, W, hw, d, clamp, ramp_bf16, m);
-      const int a = (y - ry0 + r) * sw + (x - rx0);
-#pragma unroll
-      for (int c = 0; c < 5; ++c) m_s[c * mplane + a] = m[c];
-    });
-    __syncthreads();
-
-    // ---- phase 2: the flow on the tile grown by (k - 1 - j) * r ----
-    const int oc = mc - r;
-    const int oy0 = max(ty0 - oc, 0), oy1 = min(ty1 + oc, H - 1);
-    const int ox0 = max(tx0 - oc, 0), ox1 = min(tx1 + oc, W - 1);
-    const BoxWindow g = {oy0 - ry0, my0 - ry0 + r, my1 - ry0 + r,
-                         ox0 - r - rx0, mx0 - rx0, mx1 - rx0,
-                         oy1 - oy0 + 1, ox1 - ox0 + 1};
-    if (j == k - 1) {
-      const long long p = (long long)oy0 * W + ox0;
-      box_solve(m_s, mplane, sw, r, g, inv_ws2, Uo + p, Vo + p, W);
-    } else {
-      const int q = (oy0 - ry0) * sw + (ox0 - rx0);
-      box_solve(m_s, mplane, sw, r, g, inv_ws2, fu + q, fv + q, sw);
-    }
-    __syncthreads();
-  }
-}
-
-// The gather route (fdt_umuf, fdt_umuf_bf16): a block a tile, phase 1's
-// taps read from device memory.
 template <typename T1>
 __global__ void __launch_bounds__(512, 2)
 umuf_kernel(const float* __restrict__ r0, const T1* __restrict__ r1,
@@ -301,8 +137,7 @@ umuf_kernel(const float* __restrict__ r0, const T1* __restrict__ r1,
         dy = fv[q];
       }
       float m[5];
-      matrices_from(R0, R1Planes<T1>{R1, hw, W}, dx, dy, x, y, H, W, hw, d,
-                    clamp, ramp_bf16, m);
+      matrices_from(R0, R1, dx, dy, x, y, H, W, hw, d, clamp, ramp_bf16, m);
       const int a = (y - ry0 + r) * sw + (x - rx0);
 #pragma unroll
       for (int c = 0; c < 5; ++c) m_s[c * mplane + a] = m[c];
@@ -327,70 +162,8 @@ umuf_kernel(const float* __restrict__ r0, const T1* __restrict__ r1,
   }
 }
 
-// The staged route (fdt_umuf_bf16_staged): a block a tile, as the gather
-// route, with the tile's r1 window -- a bh x bw x 5 TMA box of r1_map (the
-// (5B, H, W) bfloat16 planes) at the origin window_cols gives -- copied
-// into shared memory once at the start and phase 1's taps read there.  The
-// tensor map is the first parameter, where the parameter space is 64-byte
-// aligned, as TMA needs.  dw = ceil(d).
-__global__ void __launch_bounds__(512, 2)
-umuf_staged_kernel(const __grid_constant__ CUtensorMap r1_map,
-                   const float* __restrict__ r0,
-                   const float* __restrict__ flow_in,
-                   float* __restrict__ flow_out, int H, int W, float d,
-                   int ramp_bf16, int r, float inv_ws2, int k, int TY, int TX,
-                   int rh, int sw, int dw, int bh, int bw) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const UmufSmem lay = umuf_smem(rh, sw, r, k, bh, bw);
-  float* m_s = reinterpret_cast<float*>(smem_raw + lay.m);
-  float* fu = reinterpret_cast<float*>(smem_raw + lay.carry);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + lay.bar);
-  const long long hw = (long long)H * W;
-  const long long b = blockIdx.z;
-  const int ty0 = blockIdx.y * TY, tx0 = blockIdx.x * TX;
-  const int oy = max(ty0 - k * r - dw, 0);
-  const int ox = max(tx0 - k * r - dw, 0) / 8 * 8;
-  // one thread starts the copy; the block waits on the barrier
-  const bool lead = threadIdx.x == 0 && threadIdx.y == 0;
-  if (lead) mbar_init(bar, 1);
-  __syncthreads();
-  if (lead) {
-    mbar_expect_tx(bar, (uint32_t)(2 * 5 * bh * bw));
-    tma_load_3d(smem_raw, &r1_map, ox, oy, (int)(b * 5), bar);
-  }
-  mbar_wait(bar, 0);
-  umuf_tile(r0 + b * 5 * hw,
-            R1Window{reinterpret_cast<const __nv_bfloat16*>(smem_raw), bh * bw,
-                     bw, oy, ox},
-            flow_in + b * 2 * hw, flow_in + b * 2 * hw + hw,
-            flow_out + b * 2 * hw, flow_out + b * 2 * hw + hw, m_s, fu,
-            fu + rh * sw, H, W, d, 1, ramp_bf16, r, inv_ws2, k, ty0, tx0, TY,
-            TX, sw);
-}
-
-// libcuda's tensor-map encoder, cuTensorMapEncodeTiled, looked up at run
-// time in the libcuda the CUDA runtime has loaded, so the library needs no
-// link against it; null where it is missing.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib ? reinterpret_cast<EncodeTiled>(
-                     dlsym(lib, "cuTensorMapEncodeTiled"))
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The launch of fdt_umuf, fdt_umuf_bf16 (the gather route) and
-// fdt_umuf_bf16_staged.
-template <typename T1, bool STAGED>
+// The launch of fdt_umuf and fdt_umuf_bf16.
+template <typename T1>
 int launch_umuf(const float* r0, const T1* r1, const float* flow_in,
                 float* flow_out, int B, int H, int W, float d, int clamp,
                 int ramp_bf16, int winsize, float inv_ws2, int k, int TY,
@@ -401,76 +174,26 @@ int launch_umuf(const float* r0, const T1* r1, const float* flow_in,
   const int r = winsize / 2;
   const int rh = min(TY + 2 * k * r, H);
   const int sw = min(TX + 2 * k * r, W);
-  if constexpr (!STAGED) {
-    const size_t smem = umuf_smem(rh, sw, r, k, 0, 0).total;
-    if (smem > 232448) return (int)cudaErrorInvalidValue;
-    const cudaError_t e = allow_smem(umuf_kernel<T1>, smem);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
-    umuf_kernel<T1><<<grid, threads, smem, (cudaStream_t)stream>>>(
-        r0, r1, flow_in, flow_out, H, W, d, clamp, ramp_bf16, r, inv_ws2, k,
-        TY, TX, rh, sw);
-    return (int)cudaGetLastError();
-  } else {
-    // the window needs a bound, TMA a 16-byte aligned base and row stride
-    // and a box of at most 256 a side
-    if (!clamp || !(d >= 0.0f && d <= 4096.0f) || W % 8 != 0 ||
-        reinterpret_cast<uintptr_t>(r1) % 16 != 0)
-      return (int)cudaErrorInvalidValue;
-    const int dw = (int)ceilf(d);
-    const int bh = window_rows(TY, k, r, dw);
-    const int bw = window_cols(TX, k, r, dw);
-    if (bh > 256 || bw > 256)
-      return (int)cudaErrorInvalidValue;
-    const EncodeTiled encode = encode_tiled();
-    if (encode == nullptr) return (int)cudaErrorNotSupported;
-    // r1 as (5B, H, W) planes; one box covers a batch entry's 5 channels
-    CUtensorMap map = {};
-    const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)H,
-                                (cuuint64_t)B * 5};
-    const cuuint64_t strides[2] = {(cuuint64_t)W * 2, (cuuint64_t)H * W * 2};
-    const cuuint32_t box[3] = {(cuuint32_t)bw, (cuuint32_t)bh, 5};
-    const cuuint32_t unit[3] = {1, 1, 1};
-    if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, (void*)r1, dims,
-               strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-               CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return (int)cudaErrorInvalidValue;
-    const size_t smem = umuf_smem(rh, sw, r, k, bh, bw).total;
-    if (smem > 232448) return (int)cudaErrorInvalidValue;
-    const cudaError_t e = allow_smem(umuf_staged_kernel, smem);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
-    umuf_staged_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-        map, r0, flow_in, flow_out, H, W, d, ramp_bf16, r, inv_ws2, k, TY, TX,
-        rh, sw, dw, bh, bw);
-    return (int)cudaGetLastError();
-  }
-}
-
-long long smem_of(int H, int W, int winsize, int k, int TY, int TX, int dw,
-                  bool staged) {
-  const int r = winsize / 2;
-  return (long long)umuf_smem(min(TY + 2 * k * r, H), min(TX + 2 * k * r, W),
-                              r, k, staged ? window_rows(TY, k, r, dw) : 0,
-                              staged ? window_cols(TX, k, r, dw) : 0)
-      .total;
+  const size_t smem = umuf_smem_bytes(rh, sw, r, k);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem(umuf_kernel<T1>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
+  umuf_kernel<T1><<<grid, threads, smem, (cudaStream_t)stream>>>(
+      r0, r1, flow_in, flow_out, H, W, d, clamp, ramp_bf16, r, inv_ws2, k, TY,
+      TX, rh, sw);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared memory one block of fdt_umuf (and of fdt_umuf_bf16, the gather
-// route) takes: the planner's formula, for the card tests to hold it to.
+// Shared memory one block of fdt_umuf takes: the planner's formula, for
+// the card tests to hold it to.
 extern "C" long long fdt_umuf_smem(int H, int W, int winsize, int k, int TY,
                                    int TX) {
-  return smem_of(H, W, winsize, k, TY, TX, 0, false);
-}
-
-// The same for fdt_umuf_bf16_staged at bound d.
-extern "C" long long fdt_umuf_bf16_staged_smem(int H, int W, int winsize,
-                                               int k, int TY, int TX,
-                                               float d) {
-  return smem_of(H, W, winsize, k, TY, TX, (int)ceilf(d), true);
+  const int r = winsize / 2;
+  return (long long)umuf_smem_bytes(min(TY + 2 * k * r, H),
+                                    min(TX + 2 * k * r, W), r, k);
 }
 
 // k chained iterations in one launch.  r0, r1: (B, 5, H, W); flow_in,
@@ -485,33 +208,16 @@ extern "C" int fdt_umuf(const float* r0, const float* r1,
                         int W, float d, int clamp, int ramp_bf16, int winsize,
                         float inv_ws2, int k, int TY, int TX, int threads,
                         void* stream) {
-  return launch_umuf<float, false>(r0, r1, flow_in, flow_out, B, H, W, d,
-                                   clamp, ramp_bf16, winsize, inv_ws2, k, TY,
-                                   TX, threads, stream);
+  return launch_umuf(r0, r1, flow_in, flow_out, B, H, W, d, clamp, ramp_bf16,
+                     winsize, inv_ws2, k, TY, TX, threads, stream);
 }
 
-// The packed form's gather route: fdt_umuf with r1 contiguous bfloat16.
+// The packed form: fdt_umuf with r1 contiguous bfloat16.
 extern "C" int fdt_umuf_bf16(const float* r0, const __nv_bfloat16* r1,
                              const float* flow_in, float* flow_out, int B,
                              int H, int W, float d, int clamp, int ramp_bf16,
                              int winsize, float inv_ws2, int k, int TY, int TX,
                              int threads, void* stream) {
-  return launch_umuf<__nv_bfloat16, false>(r0, r1, flow_in, flow_out, B, H, W,
-                                           d, clamp, ramp_bf16, winsize,
-                                           inv_ws2, k, TY, TX, threads, stream);
-}
-
-// The packed form's staged route: fdt_umuf_bf16 with r1's window for each
-// block copied into shared memory once a launch.  Needs the clamp (d is the
-// bound), W a multiple of 8, r1 16-byte aligned and a window of at most
-// 256 x 256 texels; else returns cudaErrorInvalidValue and launches nothing.
-extern "C" int fdt_umuf_bf16_staged(const float* r0, const __nv_bfloat16* r1,
-                                    const float* flow_in, float* flow_out,
-                                    int B, int H, int W, float d, int clamp,
-                                    int ramp_bf16, int winsize, float inv_ws2,
-                                    int k, int TY, int TX, int threads,
-                                    void* stream) {
-  return launch_umuf<__nv_bfloat16, true>(r0, r1, flow_in, flow_out, B, H, W,
-                                          d, clamp, ramp_bf16, winsize,
-                                          inv_ws2, k, TY, TX, threads, stream);
+  return launch_umuf(r0, r1, flow_in, flow_out, B, H, W, d, clamp, ramp_bf16,
+                     winsize, inv_ws2, k, TY, TX, threads, stream);
 }

@@ -6,11 +6,9 @@ Each kernel's wrapper (``sample.displace_sample``, ``umuf.umuf_iterate``,
 version for a CPU tensor, and raises for any other device.  ``LAUNCHES``
 counts the kernel launches of each wrapper, per form: ``umuf_bf16``,
 ``compose_bf16``, ``compose_run_bf16`` and ``um_bf16`` count the packed
-forms (the sampling source in bfloat16, ``--precision bfloat16``), and
-``umuf_bf16_staged`` and ``umuf_bf16_gather`` split ``umuf_bf16`` by the
-route its planner took (r1's window staged in shared memory, or gathered
-from device memory).  A run resets it and reads it afterwards to show which
-kernels its path went through.
+forms (the sampling source in bfloat16, ``--precision bfloat16``).  A run
+resets it and reads it afterwards to show which kernels its path went
+through.
 """
 
 from __future__ import annotations
@@ -18,8 +16,7 @@ from __future__ import annotations
 # kernel form -> number of launches since the last reset_launches()
 LAUNCHES = {"compose": 0, "compose_bf16": 0, "compose_run": 0,
             "compose_run_bf16": 0, "sample": 0, "uf": 0, "um": 0,
-            "um_bf16": 0, "umuf": 0, "umuf_bf16": 0, "umuf_bf16_gather": 0,
-            "umuf_bf16_staged": 0}
+            "um_bf16": 0, "umuf": 0, "umuf_bf16": 0}
 
 
 def reset_launches() -> None:

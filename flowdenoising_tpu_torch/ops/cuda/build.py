@@ -49,10 +49,7 @@ SIGNATURES = {
                     _P], _I),
     "fdt_umuf": _UMUF,
     "fdt_umuf_bf16": _UMUF,
-    "fdt_umuf_bf16_staged": _UMUF,
     "fdt_umuf_smem": ([_I, _I, _I, _I, _I, _I], ctypes.c_longlong),
-    "fdt_umuf_bf16_staged_smem": ([_I, _I, _I, _I, _I, _I, _F],
-                                  ctypes.c_longlong),
     "fdt_update_flow": ([_P, _P, _I, _I, _I, _I, _F, _P], _I),
     "fdt_update_flow_smem": ([_I], ctypes.c_longlong),
     "fdt_update_matrices": _UM,

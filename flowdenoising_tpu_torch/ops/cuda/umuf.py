@@ -10,7 +10,6 @@ tests hold its choices to the shared-memory limits.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
@@ -30,8 +29,6 @@ TILES = ((32, 64), (32, 32), (16, 32), (16, 16), (8, 16), (8, 8))
 # neighbouring blocks, and past twice the tile's work that costs more than
 # the device-memory round trips the fusion saves.
 MAX_PHASE1_WORK = 2.0
-# A TMA box is at most this many texels a side.
-MAX_BOX = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,10 +37,7 @@ class UmufPlan:
     the iterations of each launch (k, ..., k, rest); each block owns a
     ``tile_y`` x ``tile_x`` output tile with ``threads`` threads and
     ``smem`` bytes of shared memory (at the first launch's k);
-    ``phase1_work`` is phase 1's pixels per output pixel and iteration.
-    ``route`` is where phase 1 reads r1: "staged" (the packed form's
-    window of r1, a box of ``window`` rows x columns, copied into shared
-    memory once a launch) or "gather" (from device memory)."""
+    ``phase1_work`` is phase 1's pixels per output pixel and iteration."""
     tile_y: int
     tile_x: int
     per_launch: int
@@ -51,57 +45,18 @@ class UmufPlan:
     threads: int
     smem: int
     phase1_work: float
-    route: str = "gather"
-    window: tuple[int, int] | None = None
-
-
-def r1_window(winsize: int, k: int, tile_y: int, tile_x: int,
-              d: float) -> tuple[int, int]:
-    """Rows and columns of r1 that phase 1 of a tile can read over k
-    iterations at bound d (``csrc/umuf.cu``: ``window_rows``, and
-    ``window_cols`` before its slack and rounding): the first iteration's region,
-    the tile grown by k*r (r = winsize // 2), grown by ceil(d) on the low
-    side and ceil(d) + 1 on the high side.  For the tile at (ty0, tx0) its
-    first texel is plane pixel (ty0 - k*r - ceil(d), tx0 - k*r - ceil(d));
-    the texels read are those of it in the plane."""
-    r, dw = winsize // 2, math.ceil(d)
-    return tile_y + 2 * k * r + 2 * dw + 1, tile_x + 2 * k * r + 2 * dw + 1
 
 
 def umuf_smem_bytes(h: int, w: int, winsize: int, k: int, tile_y: int,
-                    tile_x: int, stage_d: float | None = None) -> int:
+                    tile_x: int) -> int:
     """Shared memory of one K-umuf block (``csrc/umuf.cu``:
-    ``umuf_smem``): M, 5 planes of (RH + r) x SW floats, and for k > 1 the
-    flow carry, 2 planes of RH x SW, where RH x SW is the tile grown by k*r
-    on every side, clamped to the plane.  With ``stage_d`` (the packed
-    form's staged route at bound d) also r1's window in bfloat16, 5 planes
-    of ``r1_box``, before them, and the 8-byte barrier its copy completes
-    on after them."""
+    ``umuf_smem_bytes``): M, 5 planes of (RH + r) x SW floats, and for k > 1
+    the flow carry, 2 planes of RH x SW, where RH x SW is the tile grown by
+    k*r on every side, clamped to the plane."""
     r = winsize // 2
     rh = min(tile_y + 2 * k * r, h)
     sw = min(tile_x + 2 * k * r, w)
-    m = 4 * (5 * (rh + r) * sw + (2 * rh * sw if k > 1 else 0))
-    if stage_d is None:
-        return m
-    bh, bw = r1_box(winsize, k, tile_y, tile_x, stage_d)
-    return 2 * 5 * bh * bw + _round_up(m, 8) + 8
-
-
-def r1_box(winsize: int, k: int, tile_y: int, tile_x: int,
-           d: float) -> tuple[int, int]:
-    """The box of r1 the staged route copies (``csrc/umuf.cu``:
-    ``window_rows``, ``window_cols``): ``r1_window``'s rows, and its columns
-    + 7 rounded up to 8, since the box's first column is moved down to a
-    multiple of 8 (the card's copies fault at an odd one) and TMA's rows
-    are 16-byte steps.  It starts at plane pixel (max(ty0 - k*r - ceil(d),
-    0), max(tx0 - k*r - ceil(d), 0) // 8 * 8) and may run past the plane's
-    high edges, where the copy is filled and no index reaches."""
-    rows, cols = r1_window(winsize, k, tile_y, tile_x, d)
-    return rows, _round_up(cols + 7, 8)
-
-
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
+    return 4 * (5 * (rh + r) * sw + (2 * rh * sw if k > 1 else 0))
 
 
 def _phase1_work(h: int, w: int, r: int, k: int, tile_y: int,
@@ -114,26 +69,17 @@ def _phase1_work(h: int, w: int, r: int, k: int, tile_y: int,
 
 
 def plan_umuf(h: int, w: int, winsize: int, iters: int,
-              per_launch: int | None = None,
-              stage_d: float | None = None) -> UmufPlan:
-    """The route, the tile, the iterations per launch k and the shared
-    memory of K-umuf on (h, w) planes.
+              per_launch: int | None = None) -> UmufPlan:
+    """The tile, the iterations per launch k and the shared memory of K-umuf
+    on (h, w) planes.
 
     Without ``per_launch``: the largest k <= iters for which a tile of
     ``TILES`` fits two blocks on an SM while phase 1 does at most
     ``MAX_PHASE1_WORK`` times the tile's pixels, with the largest such tile;
     else k = 1 with the largest tile that fits.  ``per_launch`` fixes k (the
-    largest tile that fits).
-
-    ``stage_d``, the packed form's bound: plan the staged route, r1's
-    window in shared memory, where a staged plan fits so (its window in the
-    budget; w a multiple of 8 and a window of at most ``MAX_BOX`` a side,
-    TMA's rules), else the gather route.  None plans the gather route: the
-    float32 form, the packed form with no bound, and every path, since the
-    card ran the staged route slower than the gather route at every shape
-    where a staged plan fits (PERF.md).  The output is the same bit for bit
-    for every plan.  Raises ValueError when no tile fits at k = 1: the
-    winsize's window halo is too wide for the kernel's shared memory.
+    largest tile that fits).  The output is the same bit for bit for every
+    plan.  Raises ValueError when no tile fits at k = 1: the winsize's
+    window halo is too wide for the kernel's shared memory.
     """
     if iters < 0 or winsize < 1 or h < 1 or w < 1:
         raise ValueError(f"plan_umuf: bad arguments h={h} w={w} "
@@ -146,26 +92,16 @@ def plan_umuf(h: int, w: int, winsize: int, iters: int,
         ks, limit = [per_launch], None
     else:
         ks, limit = range(max(iters, 1), 0, -1), MAX_PHASE1_WORK
-    stages = [None]
-    if stage_d is not None and w % 8 == 0:
-        stages.insert(0, stage_d)
-    for d in stages:
-        for k in ks:
-            for ty, tx in TILES:
-                ty, tx = min(ty, h), min(tx, w)
-                smem = umuf_smem_bytes(h, w, winsize, k, ty, tx, d)
-                work = _phase1_work(h, w, r, k, ty, tx)
-                if smem > SMEM_TWO_BLOCKS or (limit and k > 1 and work > limit):
-                    continue
-                window = None
-                if d is not None:
-                    window = r1_box(winsize, k, ty, tx, d)
-                    if max(window) > MAX_BOX:
-                        continue
-                launches = (k,) * (iters // k) + ((iters % k,) if iters % k else ())
-                return UmufPlan(ty, tx, k, launches,
-                                512 if ty * tx >= 2048 else 256, smem, work,
-                                "gather" if d is None else "staged", window)
+    for k in ks:
+        for ty, tx in TILES:
+            ty, tx = min(ty, h), min(tx, w)
+            smem = umuf_smem_bytes(h, w, winsize, k, ty, tx)
+            work = _phase1_work(h, w, r, k, ty, tx)
+            if smem > SMEM_TWO_BLOCKS or (limit and k > 1 and work > limit):
+                continue
+            launches = (k,) * (iters // k) + ((iters % k,) if iters % k else ())
+            return UmufPlan(ty, tx, k, launches, 512 if ty * tx >= 2048 else 256,
+                            smem, work)
     raise ValueError(f"umuf_iterate: winsize {winsize} needs a window halo of "
                      f"{r} px, wider than the kernel's shared-memory tile "
                      "holds")
@@ -174,8 +110,7 @@ def plan_umuf(h: int, w: int, winsize: int, iters: int,
 def umuf_iterate(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
                  iters: int, d: int | None, winsize: int,
                  per_launch: int | None = None,
-                 ramp_bf16: bool = False,
-                 stage_r1: bool = False) -> torch.Tensor:
+                 ramp_bf16: bool = False) -> torch.Tensor:
     """``iters`` Farneback iterations ``flow <- update_flow(update_matrices(
     r0, r1, flow, d), winsize)``.
 
@@ -188,13 +123,9 @@ def umuf_iterate(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
 
     A CPU tensor takes the plain version (``ops.farneback.
     umuf_iterate_plain``); a CUDA tensor runs the kernel as ``plan_umuf``
-    plans it, ``per_launch`` iterations a launch if given, on the gather
-    route; ``stage_r1`` plans the packed form with a bound on the staged
-    route where a staged plan fits (the card tests and ``chip_smoke.py``
-    hold it to the plain version and time it against the gather route).
-    Any other device raises, and so does a winsize whose window halo does
-    not fit the kernel's shared memory, or a staged plan's r1 not 16-byte
-    aligned.
+    plans it, ``per_launch`` iterations a launch if given; any other device
+    raises, and so does a winsize whose window halo does not fit the
+    kernel's shared memory.
     """
     b, _, h, w = flow.shape
     if (r0.shape != (b, 5, h, w) or r1.shape != r0.shape
@@ -217,15 +148,9 @@ def umuf_iterate(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
                              f"{' or '.join(map(str, dtypes))} on {r0.device}")
     if b > 65535:
         raise ValueError(f"umuf_iterate: batch {b} exceeds the grid's 65535")
-    packed = r1.dtype == torch.bfloat16
-    plan = plan_umuf(h, w, winsize, iters, per_launch,
-                     d if packed and stage_r1 else None)
-    form = "umuf_bf16" if packed else "umuf"
-    entry = "fdt_" + form + ("_staged" if plan.route == "staged" else "")
-    if plan.route == "staged" and r1.data_ptr() % 16:
-        raise ValueError("umuf_iterate: the staged route copies r1 with TMA, "
-                         "which needs it 16-byte aligned")
-    launch = getattr(load_library(), entry)
+    plan = plan_umuf(h, w, winsize, iters, per_launch)
+    form = "umuf_bf16" if r1.dtype == torch.bfloat16 else "umuf"
+    launch = getattr(load_library(), "fdt_" + form)
     stream = torch.cuda.current_stream(r0.device).cuda_stream
     clamp = int(d is not None)
     dval = 0.0 if d is None else float(d)
@@ -238,9 +163,7 @@ def umuf_iterate(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
             r0.data_ptr(), r1.data_ptr(), cur.data_ptr(), nxt.data_ptr(),
             b, h, w, dval, clamp, int(ramp_bf16), winsize, inv_ws2, k,
             plan.tile_y, plan.tile_x, plan.threads, stream)
-        check(rc, entry)
+        check(rc, "fdt_" + form)
         LAUNCHES[form] += 1
-        if packed:
-            LAUNCHES[f"umuf_bf16_{plan.route}"] += 1
         cur = nxt
     return cur

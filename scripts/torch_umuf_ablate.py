@@ -9,12 +9,11 @@ are), ``no_r1`` (phase 1's r1 taps replaced by values of their indices),
 ``no_r0`` (r0's loads by values of the pixel index), ``no_ramp`` (the
 border ramp by 1), ``no_phase1`` (M from the flow alone) and ``no_phase2``
 (the box sum and solve replaced by one copy).  Each variant's outputs are
-wrong by design; only their times mean something.  Times every entry --
-the staged route (``fdt_umuf_bf16_staged`` at its planned 32x32 tile), the
-gather route at its planned 32x64 tile and at the staged tile, and the
-float32 form -- at (256, 5, 256, 256), d 9, winsize 5, 3 iterations, two
-turns each (CUDA events, 5 launches a turn), and prints one line a variant
-and entry and the card's nvidia-smi line.
+wrong by design; only their times mean something.  Times both entries --
+the packed form ``fdt_umuf_bf16`` at its planned 32x64 tile and at a 32x32
+tile, and the float32 form -- at (256, 5, 256, 256), d 9, winsize 5, 3
+iterations, two turns each (CUDA events, 5 launches a turn), and prints one
+line a variant and entry and the card's nvidia-smi line.
 
     python3 scripts/torch_umuf_ablate.py --vs DIR
 
@@ -29,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import shutil
 import subprocess
 import sys
@@ -43,7 +43,7 @@ OUT = REPO / "build" / "umuf_ablate"
 M = "m[0] = dx; m[1] = dy; m[2] = dx * dy; m[3] = dx + 1.0f; m[4] = dy + 1.0f;"
 VARIANTS = {
     "base": [],
-    "no_r1": [("farneback.cuh", f"const float v{n} = src.at(c, {o});",
+    "no_r1": [("farneback.cuh", f"const float v{n} = load_f32(q + {o});",
                f"const float v{n} = (float)({o} + c);")
               for n, o in (("00", "ra + xa"), ("01", "ra + xb"), ("10", "rb + xa"),
                            ("11", "rb + xb"))],
@@ -56,9 +56,7 @@ VARIANTS = {
     "no_ramp": [("farneback.cuh",
                  "float sc = (float)(edge_weight(y, H) * edge_weight(x, W));",
                  "float sc = 1.0f;")],
-    "no_phase1": [("umuf.cu", "matrices_from(R0, R1Planes<T1>{R1, hw, W}, dx, dy, x, y, "
-                   "H, W, hw, d,\n                    clamp, ramp_bf16, m);", M),
-                  ("umuf.cu", "matrices_from(R0, src, dx, dy, x, y, H, W, hw, d, clamp, "
+    "no_phase1": [("umuf.cu", "matrices_from(R0, R1, dx, dy, x, y, H, W, hw, d, clamp, "
                    "ramp_bf16, m);", M)],
     "no_phase2": [("umuf.cu",
                    "      box_solve(m_s, mplane, sw, r, g, inv_ws2, Uo + p, Vo + p, W);",
@@ -67,7 +65,7 @@ VARIANTS = {
                    "      box_solve(m_s, mplane, sw, r, g, inv_ws2, fu + q, fv + q, sw);",
                    "      if (threadIdx.x < 64) fu[q + threadIdx.x] = m_s[threadIdx.x];")],
 }
-ENTRIES = ("fdt_umuf", "fdt_umuf_bf16", "fdt_umuf_bf16_staged")
+ENTRIES = ("fdt_umuf", "fdt_umuf_bf16")
 
 
 def main() -> int:
@@ -129,12 +127,11 @@ def main() -> int:
                             .astype(np.float32)).to(dev)
     out = torch.empty_like(flow)
     stream = torch.cuda.current_stream().cuda_stream
-    staged = plan_umuf(256, 256, 5, 3, stage_d=9)
-    gather = plan_umuf(256, 256, 5, 3)
-    cases = {"staged": ("fdt_umuf_bf16_staged", r1b, staged),
-             "gather": ("fdt_umuf_bf16", r1b, gather),
-             "float32": ("fdt_umuf", r1, gather),
-             "gather_at_32x32": ("fdt_umuf_bf16", r1b, staged)}
+    plan = plan_umuf(256, 256, 5, 3)
+    at_32x32 = dataclasses.replace(plan, tile_y=32, tile_x=32, threads=256)
+    cases = {"bf16": ("fdt_umuf_bf16", r1b, plan),
+             "float32": ("fdt_umuf", r1, plan),
+             "bf16_at_32x32": ("fdt_umuf_bf16", r1b, at_32x32)}
 
     def ms(fn, reps=5):
         fn()
@@ -182,13 +179,12 @@ def compare(libs, torch, F, plan_umuf) -> int:
         rr = F.poly_expand(torch.from_numpy(
             (r.normal(size=(2, 256, size, size)) * 40).astype(np.float32)).to(dev)
         ).contiguous()
-        srcs = {"fdt_umuf": rr[1], "fdt_umuf_bf16": rr[1].to(torch.bfloat16),
-                "fdt_umuf_bf16_staged": rr[1].to(torch.bfloat16)}
+        srcs = {"fdt_umuf": rr[1], "fdt_umuf_bf16": rr[1].to(torch.bfloat16)}
         flow = torch.from_numpy((r.normal(size=(256, 2, size, size)) * 1.5 * d / 9)
                                 .astype(np.float32)).to(dev)
         outs = {}
         for entry in entries:
-            plan = plan_umuf(size, size, 5, 3, stage_d=d if "staged" in entry else None)
+            plan = plan_umuf(size, size, 5, 3)
             times = {name: [] for name in libs}
             for name in ("other", "this", "this", "other"):
                 out = torch.empty_like(flow)

@@ -140,7 +140,6 @@ def test_compose_kernel_matches_plain(dev, n, h, w, d):
     torch.testing.assert_close(acc, ar, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("stage_r1", [False, True])
 @pytest.mark.parametrize("b,h,w,winsize,d,ramp_bf16", [
     (2, 64, 64, 5, 5, False), (3, 37, 70, 7, 3, False), (2, 32, 32, 5, 2, True),
     (1, 3, 3, 5, 2, True), (2, 100, 130, 15, 9, False), (4, 256, 256, 5, 9, False),
@@ -148,34 +147,25 @@ def test_compose_kernel_matches_plain(dev, n, h, w, d):
     # 2) and the adjacent bound's level 0 (d 5)
     (8, 128, 128, 5, 5, False), (8, 64, 64, 5, 3, False), (2, 512, 512, 5, 9, False),
     (4, 256, 256, 5, 5, False), (8, 128, 128, 5, 3, False), (8, 64, 64, 5, 2, False),
-    # no staged plan fits: the gather route either way
+    # the auto probe's largest bound at level 0 (D 48)
     (2, 256, 256, 5, 49, False),
 ])
-def test_umuf_bf16_kernel_matches_plain(dev, b, h, w, winsize, d, ramp_bf16,
-                                        stage_r1):
-    # K-umuf-bf16: r1 in bfloat16, counted apart from the float32 form and
-    # by route; the staged route's shared memory is the planner's formula
+def test_umuf_bf16_kernel_matches_plain(dev, b, h, w, winsize, d, ramp_bf16):
+    # K-umuf-bf16: r1 in bfloat16, counted apart from the float32 form, on
+    # the float32 form's plan, whose shared memory is the planner's formula
     r = np.random.default_rng(h * w + winsize + 1)
     rr = F.poly_expand(_t(r.normal(size=(2, b, h, w)) * 40, dev)).contiguous()
     r1 = rr[1].to(torch.bfloat16)
     flow = r.normal(size=(b, 2, h, w)) * 2
     flow[:, 0, : h // 4] += 2 * d + 3          # a band beyond +-d
     flow = _t(flow, dev)
-    plan = plan_umuf(h, w, winsize, 3, stage_d=d if stage_r1 else None)
-    if plan.route == "staged":
-        assert plan.smem == load_library().fdt_umuf_bf16_staged_smem(
-            h, w, winsize, plan.per_launch, plan.tile_y, plan.tile_x, float(d))
-    else:
-        assert plan.smem == load_library().fdt_umuf_smem(
-            h, w, winsize, plan.per_launch, plan.tile_y, plan.tile_x)
-    assert (plan.route == "staged") == (stage_r1 and d < 49 and w % 8 == 0)
+    plan = plan_umuf(h, w, winsize, 3)
+    assert plan.smem == load_library().fdt_umuf_smem(
+        h, w, winsize, plan.per_launch, plan.tile_y, plan.tile_x)
     before = dict(K.LAUNCHES)
-    out = umuf_iterate(rr[0], r1, flow, 3, d, winsize, ramp_bf16=ramp_bf16,
-                       stage_r1=stage_r1)
-    n = len(plan.launches)
-    assert K.LAUNCHES == {**before, "umuf_bf16": before["umuf_bf16"] + n,
-                          f"umuf_bf16_{plan.route}":
-                          before[f"umuf_bf16_{plan.route}"] + n}
+    out = umuf_iterate(rr[0], r1, flow, 3, d, winsize, ramp_bf16=ramp_bf16)
+    assert K.LAUNCHES == {**before,
+                          "umuf_bf16": before["umuf_bf16"] + len(plan.launches)}
     ref = F.umuf_iterate_plain(rr[0], r1, flow, 3, d, winsize, ramp_bf16)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
@@ -336,15 +326,6 @@ def test_wrappers_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="halo"):
         umuf_iterate(rw, rw, fw, 3, 2, 101)
     assert K.LAUNCHES["umuf"] == before
-    # the staged route's TMA copy needs r1 16-byte aligned
-    r1b = torch.zeros(5 * 64 * 64 + 1, dtype=torch.bfloat16,
-                      device=dev)[1:].view(1, 5, 64, 64)
-    r64 = torch.zeros(1, 5, 64, 64, device=dev)
-    f64 = torch.zeros(1, 2, 64, 64, device=dev)
-    counts = dict(K.LAUNCHES)
-    with pytest.raises(ValueError, match="aligned"):
-        umuf_iterate(r64, r1b, f64, 3, 3, 5, stage_r1=True)
-    assert K.LAUNCHES == counts
     with pytest.raises(ValueError):
         compose_tap(f, f, src, src.double(), 0.5, 2, 0, 0)
     with pytest.raises(ValueError):

@@ -8,13 +8,9 @@ atol 5e-4, rtol 1e-4 (the bar of tests/test_pallas_umuf.py).
 The CUDA kernel is held against this plain version on the card by
 ``chip_smoke.py`` and by tests/test_torch_cuda.py.  Here, where no kernel
 runs, the kernel's decomposition -- output tiles with r*k context, k
-iterations a launch, and for the packed form's staged route r1 read only
-through each tile's window -- is emulated in plain PyTorch and held to the
-plain version bit for bit, and the launch planner to the card's shared
-memory.
+iterations a launch -- is emulated in plain PyTorch and held to the plain
+version bit for bit, and the launch planner to the card's shared memory.
 """
-
-import math
 
 import numpy as np
 import jax.numpy as jnp
@@ -28,8 +24,8 @@ from flowdenoising_tpu.ops.pallas import umuf as JU
 from flowdenoising_tpu_torch.ops import cuda as K
 from flowdenoising_tpu_torch.ops import farneback as F
 from flowdenoising_tpu_torch.ops.cuda.umuf import (
-    MAX_BOX, MAX_PHASE1_WORK, SMEM_PER_BLOCK, SMEM_TWO_BLOCKS, plan_umuf,
-    r1_box, r1_window, umuf_iterate, umuf_smem_bytes)
+    MAX_PHASE1_WORK, SMEM_PER_BLOCK, SMEM_TWO_BLOCKS, plan_umuf, umuf_iterate,
+    umuf_smem_bytes)
 
 torch.set_num_threads(1)
 
@@ -101,57 +97,18 @@ def test_cpu_wrapper_counts_no_launch_and_checks_shapes():
 
 # --- the kernel's decomposition (csrc/umuf.cu), emulated on the CPU ---
 
-def _window_matrices(r0, r1, f, d, my, mx, win):
-    """Phase 1 of the staged route on the region (my, mx): M from r1 read
-    only through ``win`` (row and column slices of the plane), a tensor cut
-    to it and indexed at window-relative coordinates of the clamped taps;
-    raises IndexError for any tap outside it.  Each operation is
-    ``update_matrices_plain``'s (``displace_sample_plain``'s clamp and
-    ``bilinear_sample``'s footprint and lerps) on the region's pixels."""
-    h, w = r0.shape[-2], r0.shape[-1]
-    src = r1[..., win[0], win[1]].float()
-    wh, ww = src.shape[-2], src.shape[-1]
-    dx, dy = f[..., 0, my, mx], f[..., 1, my, mx]
-    gx = torch.arange(mx.start, mx.stop, dtype=torch.float32)
-    gy = torch.arange(my.start, my.stop, dtype=torch.float32).reshape(-1, 1)
-    inb = F._in_plane(gx + dx, gy + dy, h, w)
-    u, v = dx.clamp(-float(d), float(d)), dy.clamp(-float(d), float(d))
-    fx, fy = (u + gx).unsqueeze(-3), (v + gy).unsqueeze(-3)
-    x0, y0 = torch.floor(fx), torch.floor(fy)
-    tx, ty = fx - x0, fy - y0
-    x0i = x0.clamp(-1, w).to(torch.int64)
-    y0i = y0.clamp(-1, h).to(torch.int64)
-    xa, xb = x0i.clamp(0, w - 1) - win[1].start, (x0i + 1).clamp(0, w - 1) - win[1].start
-    ya, yb = y0i.clamp(0, h - 1) - win[0].start, (y0i + 1).clamp(0, h - 1) - win[0].start
-    for idx, n in ((xa, ww), (xb, ww), (ya, wh), (yb, wh)):
-        if int(idx.min()) < 0 or int(idx.max()) >= n:
-            raise IndexError("phase 1 read r1 outside the tile's window")
-    flat = src.reshape(src.shape[:-2] + (wh * ww,))
-
-    def tap(yi, xi):
-        idx = (yi * ww + xi).expand(src.shape[:-2] + yi.shape[-2:])
-        return torch.gather(flat, -1, idx.reshape(idx.shape[:-2] + (-1,))
-                            ).reshape(idx.shape)
-
-    v00, v01, v10, v11 = tap(ya, xa), tap(ya, xb), tap(yb, xa), tap(yb, xb)
-    top = v00 + (v01 - v00) * tx
-    bot = v10 + (v11 - v10) * tx
-    s = (top + (bot - top) * ty).unbind(-3)
-    scale = F._border_scale(h, w, r0)[my, mx]
-    return F._normal_equations(r0[..., my, mx], s, inb, dx, dy, scale)
-
-
 def _tiled_emulation(r0, r1, flow, iters, d, winsize, tile_y, tile_x, k,
-                     staged=False):
+                     short=0, ramp_bf16=False):
     """K-umuf's decomposition in plain PyTorch: ceil(iters / k) launches; in
     each, every tile_y x tile_x output tile starts from the flow on the tile
     grown by k*r (r = winsize // 2), clamped to the plane; iteration j
     computes M on the tile grown by (k - j) * r and the flow on the tile
     grown by (k - 1 - j) * r, replicating M only where the region meets the
     plane's edge.  Flow outside the region is NaN, so a window that reached
-    past it would show.  ``staged``: phase 1 reads r1 only through the
-    tile's window of ``r1_window`` at the launch's k (the staged route),
-    and raises if it reads outside it."""
+    past it would show.  ``short`` starts each tile from a flow region that
+    many pixels narrower than k*r, a halo the kernel must not have;
+    ``ramp_bf16`` rounds the border ramp to bfloat16, as the kernel's flag
+    does."""
     b, _, h, w = flow.shape
     r = winsize // 2
     nan = torch.full_like(flow, float("nan"))
@@ -166,23 +123,16 @@ def _tiled_emulation(r0, r1, flow, iters, d, winsize, tile_y, tile_x, k,
                             slice(max(tx0 - c, 0), min(tx1 + c, w)))
 
                 f = nan.clone()
-                f[..., grown(n * r)[0], grown(n * r)[1]] = \
-                    flow[..., grown(n * r)[0], grown(n * r)[1]]
-                if staged:
-                    rows, cols = r1_window(winsize, n, tile_y, tile_x, d)
-                    oy, ox = ty0 - n * r - math.ceil(d), tx0 - n * r - math.ceil(d)
-                    win = (slice(max(oy, 0), min(oy + rows, h)),
-                           slice(max(ox, 0), min(ox + cols, w)))
+                fy, fx = grown(n * r - short)
+                f[..., fy, fx] = flow[..., fy, fx]
                 for j in range(n):
                     my, mx = grown((n - j) * r)
                     # M is pointwise in the flow: compute it on the plane,
                     # keep the region; the box sum replicates the region's
                     # edges, which are the plane's or lie r outside the
                     # flow region kept below, as far as its windows reach
-                    if staged:
-                        m = _window_matrices(r0, r1, f, d, my, mx, win)
-                    else:
-                        m = F.update_matrices_plain(r0, r1, f, d)[..., my, mx]
+                    m = F.update_matrices_plain(r0, r1, f, d,
+                                                ramp_bf16)[..., my, mx]
                     new = F.update_flow_plain(m, winsize)
                     oy, ox = grown((n - 1 - j) * r)
                     f = nan.clone()
@@ -280,97 +230,79 @@ def test_planner_refuses_windows_wider_than_shared_memory():
                 plan_umuf(256, 256, ws, iters)
 
 
+@pytest.mark.parametrize("winsize,k", [(3, 1), (5, 1), (5, 2), (5, 3), (7, 2),
+                                       (4, 3)])
+def test_tiled_emulation_with_a_halo_one_short_shows(winsize, k):
+    """The emulation's NaN check bites: interior tiles started from a flow
+    region one pixel narrower than k*r leave NaN in the output."""
+    r0, r1, flow = _cf_setup(1, 48, 48, seed=winsize * 10 + k)
+    got = _tiled_emulation(r0, r1, flow, k, 2, winsize, 16, 16, k, short=1)
+    assert torch.isnan(got[..., 16:32, 16:32]).any()
 
-# --- the packed form's staged route: r1's window per tile (csrc/umuf.cu) ---
 
-@pytest.mark.parametrize("h,w,winsize,iters,d,k,tile,bf16", [
-    (20, 24, 5, 3, 2, 3, (32, 32), False),   # plane narrower than the window
-    (37, 45, 5, 3, 2, 3, (16, 16), True),    # odd widths, tiles at every edge
-    (70, 90, 5, 3, 3, 3, (32, 32), False),
-    (33, 41, 4, 3, 3, 2, (8, 16), True),     # even winsize, launches of 2 and 1
-    (64, 64, 5, 3, 5, None, None, True),     # the planner's staged plan
-    (45, 53, 7, 3, 5, 2, (16, 32), False),
-    (20, 24, 5, 3, 9, 3, (32, 32), True),
-    (70, 96, 5, 3, 9, 3, (32, 32), True),    # interior tiles with the full window
-    (40, 40, 5, 2, 49, 2, (16, 16), True),   # d 49: the window spans the plane
-    (66, 35, 5, 1, 49, 1, (32, 16), False),
+# --- the packed form (K-umuf-bf16): r1 in bfloat16 on the same plan ---
+
+@pytest.mark.parametrize("h,w,winsize,iters,d,k,tile", [
+    (20, 24, 5, 3, 2, 3, (32, 32)),       # plane narrower than the tile's reach
+    (37, 45, 5, 3, 2, 3, (16, 16)),       # odd widths, tiles at every edge
+    (70, 90, 5, 3, 3, 3, (32, 32)),
+    (33, 41, 4, 3, 3, 2, (8, 16)),        # even winsize, launches of 2 and 1
+    (64, 64, 5, 3, 5, None, None),        # the planner's plan
+    (45, 53, 7, 3, 5, 2, (16, 32)),
+    (20, 24, 5, 3, 9, 3, (32, 32)),
+    (70, 96, 5, 3, 9, 3, (32, 32)),
+    (40, 40, 5, 2, 49, 2, (16, 16)),      # d 49, the auto probe's D 48
+    (66, 35, 5, 1, 49, 1, (32, 16)),
 ])
-def test_staged_window_emulation_equals_plain_bitwise(h, w, winsize, iters, d, k,
-                                                      tile, bf16):
-    """Phase 1 reading r1 only through each tile's window (r1_window: the
-    first iteration's region grown by ceil(d) below and ceil(d) + 1 above),
-    with flows beyond +-d in a band, equals umuf_iterate_plain bit for bit:
-    an off-by-one in the window raises, a wrong tap differs."""
+def test_tiled_emulation_of_the_packed_form_equals_plain_bitwise(
+        h, w, winsize, iters, d, k, tile):
+    """The kernel's tiling with r1 in bfloat16 at the bounds the bf16 paths
+    run (d 2, 3, 5, 9) and the auto probe's largest (49), with flows beyond
+    +-d in x and y, equals umuf_iterate_plain bit for bit."""
     r0, r1, flow = _cf_setup(1, h, w, seed=h * w + d, band=2.0 * d + 3.5)
     flow[:, 1, :, : w // 3] -= 2.0 * d + 2.5     # and one beyond -d in y
-    if bf16:
-        r1 = r1.to(torch.bfloat16)
-    plan = plan_umuf(h, w, winsize, iters, k, stage_d=d)
+    r1 = r1.to(torch.bfloat16)
+    plan = plan_umuf(h, w, winsize, iters, k)
     ty, tx = tile if tile else (plan.tile_y, plan.tile_x)
     got = _tiled_emulation(r0, r1, flow, iters, d, winsize, ty, tx,
-                           plan.per_launch, staged=True)
+                           plan.per_launch)
     ref = F.umuf_iterate_plain(r0, r1, flow, iters, d, winsize)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, ref, atol=0, rtol=0)
 
 
-def test_staged_window_emulation_raises_on_a_window_one_short():
-    """The emulation's check bites: flows of +-(d + 0.5), clamped to +-d,
-    read the window's last row and column (ceil(d) + 1 above the region)
-    and its first (ceil(d) below); a window one texel short on any side
-    raises."""
-    r0, r1, flow = _cf_setup(1, 40, 48, seed=7)
-    d, r, n, t = 3, 2, 2, 16            # the 16x16 tile at (16, 16), k = 2
-    rows, cols = r1_window(5, n, t, t, d)
-    o = t - n * r - d
-    region = slice(t - n * r, 2 * t + n * r)
-    full = (slice(o, o + rows), slice(o, o + cols))
-    shorts = ((slice(o + 1, o + rows), full[1]), (slice(o, o + rows - 1), full[1]),
-              (full[0], slice(o + 1, o + cols)), (full[0], slice(o, o + cols - 1)))
-    for sign in (1.0, -1.0):
-        f = torch.full_like(flow, sign * (d + 0.5))
-        _window_matrices(r0, r1, f, d, region, region, full)
-        raised = 0
-        for win in shorts:
-            try:
-                _window_matrices(r0, r1, f, d, region, region, win)
-            except IndexError:
-                raised += 1
-        assert raised == 2              # the two sides this sign reaches
+@pytest.mark.parametrize("h,w,iters,k,tile", [
+    (32, 32, 3, None, None),              # the tiny level of a 256^3 pass
+    (20, 24, 3, 2, (8, 16)),
+    (3, 3, 2, None, None),
+    (37, 45, 3, 3, (16, 16)),
+])
+def test_tiled_emulation_with_the_bf16_ramp_equals_plain_bitwise(h, w, iters,
+                                                                 k, tile):
+    """The float32 form with the border ramp rounded to bfloat16 (a bf16
+    pass's tiny levels) tiles as it does without: bit for bit the plain
+    version with the same ramp."""
+    r0, r1, flow = _cf_setup(1, h, w, seed=h * w + iters)
+    plan = plan_umuf(h, w, 5, iters, k)
+    ty, tx = tile if tile else (plan.tile_y, plan.tile_x)
+    got = _tiled_emulation(r0, r1, flow, iters, 2, 5, ty, tx, plan.per_launch,
+                           ramp_bf16=True)
+    ref = F.umuf_iterate_plain(r0, r1, flow, iters, 2, 5, ramp_bf16=True)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
+    assert not torch.equal(ref, F.umuf_iterate_plain(r0, r1, flow, iters, 2, 5))
 
 
-# The levels the bf16 paths run packed (ops/farneback.py: _packed_at_level):
-# 256^3 and 512^3 at D 8 (d_k = 9, 5, 3, 2), and the fast mode's adjacent
-# bound 4 (d 5 at level 0).
-PACKED_LEVELS = ((256, 9), (128, 5), (64, 3), (512, 9), (256, 5), (128, 3),
-                 (64, 2), (512, 5))
-
-
-@pytest.mark.parametrize("s,d", PACKED_LEVELS)
-def test_staged_plan_fits_two_blocks_at_the_packed_levels(s, d):
-    plan = plan_umuf(s, s, 5, 3, stage_d=d)
-    assert plan.route == "staged" and plan.launches == (3,)
-    bh, bw = plan.window
-    assert (bh, bw) == r1_box(5, 3, plan.tile_y, plan.tile_x, d)
-    assert bw % 8 == 0 and max(bh, bw) <= MAX_BOX
-    # M, the flow carry, r1's window and the barrier, in one block
-    gather = umuf_smem_bytes(s, s, 5, 3, plan.tile_y, plan.tile_x)
-    assert plan.smem == umuf_smem_bytes(s, s, 5, 3, plan.tile_y, plan.tile_x, d)
-    assert plan.smem == 2 * 5 * bh * bw + -(-gather // 8) * 8 + 8
+# The plane sizes the bf16 paths run packed (ops/farneback.py:
+# _packed_at_level): 256^2, 128^2 and 64^2 at 256^3, 512^2 to 64^2 at
+# 512^3, at every bound (the plan does not depend on d).
+@pytest.mark.parametrize("s", [512, 256, 128, 64])
+def test_plan_fits_two_blocks_at_the_packed_levels(s):
+    plan = plan_umuf(s, s, 5, 3)
+    assert plan.launches == (3,)
+    assert plan.smem == umuf_smem_bytes(s, s, 5, 3, plan.tile_y, plan.tile_x)
     assert plan.smem <= SMEM_TWO_BLOCKS
     assert plan.phase1_work <= MAX_PHASE1_WORK
-
-
-@pytest.mark.parametrize("h,w,d", [
-    (256, 256, 49),     # the auto probe's D 48 at level 0: no window fits
-    (512, 512, 44),
-    (100, 130, 9),      # rows of 260 B: not TMA's 16-byte steps
-    (37, 70, 3),
-])
-def test_staged_plan_falls_back_to_the_gather_route(h, w, d):
-    plan = plan_umuf(h, w, 5, 3, stage_d=d)
-    assert plan.route == "gather" and plan.window is None
-    assert plan == plan_umuf(h, w, 5, 3)
 
 
 @pytest.mark.parametrize("args,want", [
@@ -385,24 +317,7 @@ def test_staged_plan_falls_back_to_the_gather_route(h, w, d):
     ((4096, 4096, 5, 5), (32, 32, 5, (5,), 256, 77792)),
 ])
 def test_gather_plans_are_the_float32_forms(args, want):
-    """The float32 form's plans (and every path's, packed or not) are the
-    ones the planner made before the staged route existed."""
+    """The plans of both forms, pinned: the tile, k, launches, threads and
+    shared memory the card's times were taken at."""
     p = plan_umuf(*args)
-    assert p.route == "gather"
     assert (p.tile_y, p.tile_x, p.per_launch, p.launches, p.threads, p.smem) == want
-
-
-def test_r1_box_holds_the_window_at_every_tile():
-    """The box the kernel copies -- its origin's column moved down to a
-    multiple of 8, its width r1_box's -- holds the window's texels in the
-    plane for every tile origin, k, tile and bound."""
-    for d in (2, 3, 5, 9, 17, 49):
-        for k in (1, 2, 3):
-            for ty, tx in ((32, 32), (16, 32), (8, 8)):
-                rows, cols = r1_window(5, k, ty, tx, d)
-                bh, bw = r1_box(5, k, ty, tx, d)
-                assert bh == rows and bw % 8 == 0
-                for t0 in range(0, 200, 8 if tx % 8 == 0 else 1):
-                    lo = t0 - 2 * k - d
-                    ox = max(lo, 0) // 8 * 8
-                    assert ox <= max(lo, 0) and lo + cols <= ox + bw
