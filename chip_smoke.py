@@ -12,16 +12,17 @@ Phases, one or more lines of output each (any failure exits non-zero):
                and beside them the native I/O runtime libfdio
                (flowdenoising_tpu_torch/runtime, g++); either failing to
                build or load fails the run.
-3. kernels  -- K-sample, K-umuf, K-compose, K-um and K-uf against their
-               plain PyTorch versions on the card, at the shapes the main
-               paths give them, with the tolerances of the JAX package's own
-               kernel tests; times of both, the least time the card could
-               take for the same work (bound), and for K-sample the time of
-               torch.nn.functional.grid_sample on the same sampling (the
-               port never calls it).  K-umuf also at winsize 15 and on
-               planes smaller than its tile, its main-path call at one
-               iteration a launch against the planner's default, and its
-               time at each pyramid level of the main path.  Then the packed
+3. kernels  -- K-sample, K-umuf, K-compose, K-um, K-uf and K-umuf-split
+               against their plain PyTorch versions on the card, at the
+               shapes the main paths give them, with the tolerances of the
+               JAX package's own kernel tests; times of both, the least
+               time the card could take for the same work (bound), and for
+               K-sample the time of torch.nn.functional.grid_sample on the
+               same sampling (the port never calls it).  K-umuf also at
+               winsize 15 and on planes smaller than its tile, its
+               main-path call at one iteration a launch against the
+               planner's default, and its time at each pyramid level of the
+               main path.  Then the packed
                forms (bf16 sources, --precision bfloat16) K-umuf-bf16,
                K-compose-bf16 (with and without the bf16 carry rounding) and
                K-um-bf16, each equal to its plain version bit for bit, timed
@@ -36,7 +37,13 @@ Phases, one or more lines of output each (any failure exits non-zero):
                replaced.  K-uf also on the M of the split route's bf16
                phase 1 (--dtype bfloat16 --max_displacement 0) at every
                level of a 256^2 plane, batch 256, bit for bit, timed at
-               level 0 beside that phase 1.
+               level 0 beside that phase 1.  K-umuf-split, the split
+               route's iterations of a level in one launch, bit for bit
+               split_iterate_plain at every level of the 256^2 and 512^2
+               pyramids (batch 256) from bf16 and float32 flows, at one,
+               two and three iterations a launch, and on 40 x 261 and
+               8 x 1030 planes; timed at each level beside its plain
+               version and its bound.
 4. main     -- paths through the CLI (python -m flowdenoising_tpu_torch
                ... -s 2 2 2) on a seeded size^3 blob volume with noise,
                through MRC files: at --max_displacement 8 solve mode,
@@ -48,8 +55,8 @@ Phases, one or more lines of output each (any failure exits non-zero):
                reconstructed stage report runs K-um-bf16) and in the JAX
                README's fast mode (fast: compose, symmetric adjacent flows,
                bf16), each also against the same path at float32; the
-               bf16 pass with no bound (the split route: bf16 phase 1 in
-               plain PyTorch, K-uf, the exact gather in bf16) in solve mode
+               bf16 pass with no bound (the split route: K-umuf-split,
+               the exact gather in bf16 in plain PyTorch) in solve mode
                (solve_bf16_nobound) and in the fast mode's compose flags
                (fast_nobound), each against the same flags at float32,
                with -v 2 and its measured stage report, and
@@ -566,9 +573,83 @@ def phase_kernels(dev, seed: int) -> dict:
     print("[3 kernels] K-uf on the split route's M at every level of the 256^2 "
           "pyramid (256, 128, 64, 32), batch 256: bit-identical", flush=True)
     res["uf"] = dict(max_abs_err=err, **main)
+    res.update(split_forms(r, t, banded_flow))
     res.update(packed_forms(r, t, banded_flow, umuf_operands))
     res.update(compose_runs(r, t))
     return res
+
+
+def split_forms(r, t, banded_flow) -> dict:
+    """K-umuf-split (the split route's iterations of a level in one launch)
+    against split_iterate_plain at atol 0: at every level of the 256^2 and
+    512^2 pyramids, batch 256, from a bf16 and a float32 flow, at the
+    planner's k; at the main call also one and two iterations a launch; on
+    planes wider than 256 that are no power of 2 (40 x 261, 8 x 1030) at
+    k = 1, 2 and 3.  Timed at each level, the main call (256, 5, 256, 256)
+    with a float32 flow among them, beside its plain version and its bound
+    (36 B a pixel)."""
+    from flowdenoising_tpu_torch.ops import farneback as F
+    from flowdenoising_tpu_torch.ops.cuda.umuf_split import (
+        plan_split, umuf_split_iterate)
+
+    bf16 = torch.bfloat16
+
+    def operands(b, h, w, flow_scale):
+        rr = F.poly_expand(t(r.normal(size=(2, b, h, w)) * 40).to(bf16)).contiguous()
+        return rr, banded_flow(b, h, w, None, scale=1.5) * flow_scale
+
+    def same(what, rr, flow, ws=5, k=None):
+        out = umuf_split_iterate(rr[0], rr[1], flow, 3, ws, k)
+        ref = F.split_iterate_plain(rr[0], rr[1], flow, 3, ws)
+        torch.cuda.synchronize()
+        e = float((out - ref).abs().max())
+        require(torch.equal(out, ref), f"K-umuf-split {what}: not bit-identical "
+                f"to split_iterate_plain (max abs err {e})")
+        return e
+
+    err, main, times = 0.0, None, []
+    for size in (512, 256, 128, 64, 32):
+        rr, flow = operands(256, size, size, size / 256)
+        plan = plan_split(size, size, 5, 3)
+        ks = (None, 1, 2) if size == 256 else (None,)
+        for dtype in (bf16, torch.float32):
+            f = flow.to(dtype)
+            for k in ks:
+                err = max(err, same(f"(256,5,{size},{size}) {dtype} flow k={k}",
+                                    rr, f, k=k))
+        fb = flow.to(bf16)
+        ms = cuda_ms(lambda: umuf_split_iterate(rr[0], rr[1], flow, 3, 5))
+        ms_bf16 = cuda_ms(lambda: umuf_split_iterate(rr[0], rr[1], fb, 3, 5))
+        pms = cuda_ms(lambda: F.split_iterate_plain(rr[0], rr[1], flow, 3, 5),
+                      reps=2, warmup=1)
+        # r0, r1 (bf16) read once, the float32 flow read and written once
+        px = flow.numel() // 2
+        bnd, by = bound(2 * 2 * rr[0].numel() + 4 * 2 * flow.numel(),
+                        3 * umuf_flops(5) * px)
+        times.append(f"{size}^2: {ms:.4f} ms (bf16 flow {ms_bf16:.4f}), plain "
+                     f"{pms:.4f}, bound {bnd:.4f} ({by})")
+        print(f"[3 kernels] K-umuf-split (256,5,{size},{size}) ws=5 iters=3, "
+              f"tile {plan.tile_y}x{plan.tile_x}, {plan.threads} threads, "
+              f"{plan.smem} B shared, launches {plan.launches}: bit-identical "
+              f"from a bf16 and a float32 flow{' at k = 3, 1, 2' if size == 256 else ''}; "
+              f"kernel {ms:.4f} ms (float32 flow; bf16 flow {ms_bf16:.4f} ms), plain "
+              f"{pms:.4f} ms, bound {bnd:.4f} ms ({by}, 36 B/px)", flush=True)
+        if size == 256:
+            main = dict(ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by,
+                        library_ms=None)
+        del rr, flow, fb
+    for b, h, w in ((64, 40, 261), (64, 8, 1030)):
+        rr, flow = operands(b, h, w, 1.0)
+        for dtype in (bf16, torch.float32):
+            for k in (1, 2, 3):
+                err = max(err, same(f"({b},5,{h},{w}) {dtype} flow k={k}",
+                                    rr, flow.to(dtype), k=k))
+        del rr, flow
+    print(f"[3 kernels] K-umuf-split at every level of the 256^2 and 512^2 "
+          f"pyramids (batch 256) and on (64,5,40,261) and (64,5,8,1030) at k = 1, "
+          f"2, 3, from bf16 and float32 flows: bit-identical (max_abs_err "
+          f"{err:.3g}); times: {'; '.join(times)}", flush=True)
+    return {"umuf_split": dict(max_abs_err=err, **main)}
 
 
 def compose_runs(r, t, n: int = 256) -> dict:
@@ -845,15 +926,16 @@ def expected_launches(shape, cfg, windows=(1, 1, 1), passes=(0, 1, 2)) -> dict:
     packed form (umuf_bf16) on the levels where the JAX package packs
     (``_packed_at_level``: --precision bfloat16, outside the tiny route).
     K-compose-run runs packed (compose_run_bf16) with --precision bfloat16.
-    A bf16 pass with no bound (the split route) launches K-uf once a level
-    and iteration of every solve and no other kernel (its phase 1, warps
-    and compose chain are plain PyTorch); else a denoise never launches
-    the per-tap K-compose, K-um or K-uf (its solves run fused in K-umuf).
+    A bf16 pass with no bound (the split route) launches K-umuf-split as
+    its planner plans each level of every solve and no other kernel (its
+    warps and compose chain are plain PyTorch); a denoise never launches
+    the per-tap K-compose, K-um or K-uf.
     Pass i runs once per window,
     ``windows[i]`` times (slabs, or a stream's windows with the recomputed
     tail); only the passes in ``passes`` run (a resumed run)."""
     from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
     from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf
+    from flowdenoising_tpu_torch.ops.cuda.umuf_split import plan_split
     from flowdenoising_tpu_torch.ops.farneback import _packed_at_level, split_route
     from flowdenoising_tpu_torch.ops.resize import pyramid_sizes
     planes = [(shape[1], shape[2]), (shape[0], shape[2]), (shape[0], shape[1])]
@@ -875,7 +957,9 @@ def expected_launches(shape, cfg, windows=(1, 1, 1), passes=(0, 1, 2)) -> dict:
         solves = ((1 if f.symmetric_adjacent else 2) if f.tap_mode == "compose"
                   else n_taps) * windows[i]
         if split_route(f):
-            n["uf"] += solves * len(sizes) * f.iterations
+            n["umuf_split"] += solves * sum(
+                len(plan_split(hk, wk, f.winsize, f.iterations).launches)
+                for hk, wk in sizes)
             continue
         for k, (hk, wk) in enumerate(sizes):
             form = "umuf_bf16" if _packed_at_level(adj, k, hk, wk) else "umuf"
@@ -947,7 +1031,8 @@ def wall_s(fn) -> float:
 def kernel_family(name: str) -> str:
     """A device kernel's family, for the device-time split."""
     low = name.lower()
-    for key, family in (("compose_run_kernel", "K-compose-run"),
+    for key, family in (("umuf_split_kernel", "K-umuf-split"),
+                        ("compose_run_kernel", "K-compose-run"),
                         ("compose_kernel", "K-compose"), ("umuf_kernel", "K-umuf"),
                         ("uf_kernel", "K-uf"), ("um_kernel", "K-um"),
                         ("sample_kernel", "K-sample"), ("memcpy", "memcpy"),
@@ -1014,8 +1099,8 @@ PATHS = {
               "bfloat16", "--precision", "bfloat16"],
              {"tap_mode": "compose", "symmetric_adjacent": True,
               "dtype": "bfloat16", "precision": "bfloat16"}, 40.0),
-    # the bf16 pass with no bound (the split route: bf16 phase 1, K-uf, the
-    # exact gather in bf16); --max_displacement 0 after the 8 above wins
+    # the bf16 pass with no bound (the split route: K-umuf-split, the exact
+    # gather in bf16); --max_displacement 0 after the 8 above wins
     "solve_bf16_nobound": (["--dtype", "bfloat16", "--max_displacement", "0"],
                            {"dtype": "bfloat16", "max_displacement": None}, 40.0),
     "fast_nobound": (["--tap_flow", "compose", "--symmetric_adjacent", "--dtype",
@@ -1370,8 +1455,8 @@ def phase_e2e(dev, seed: int) -> None:
         require(p >= 55.0, f"{name}: card vs CPU PSNR {p:.2f} dB < 55")
         same = "bit-identical" if np.array_equal(on_card, on_cpu) else "not bit-identical"
         # the compose passes: K-compose-run on the card, its plain chain of
-        # steps on the CPU; the no-bound paths: K-uf against its plain version
-        # and the same plain PyTorch phase 1 and gathers on both
+        # steps on the CPU; the no-bound paths: K-umuf-split against its
+        # plain version and the same plain PyTorch gathers on both
         require(same == "bit-identical" or name not in (
             "compose", "fast", "solve_bf16_nobound", "fast_nobound"),
                 f"{name}: the card's output is not the CPU's bit for bit")
@@ -1977,10 +2062,10 @@ def main() -> int:
 
     # each kernel form's launches from the path that defines it: K-umuf and
     # K-sample from solve mode, K-compose-run (and the per-tap K-compose,
-    # which no denoise launches now) from compose mode, K-uf from the bf16
-    # pass with no bound, K-um from the auto_v2 CLI run that falls back to
-    # the reconstruction; the packed forms from the bf16 paths (K-um-bf16
-    # from solve_bf16's reconstruction)
+    # which no denoise launches now) from compose mode, K-umuf-split from
+    # the bf16 pass with no bound, K-um and K-uf from the auto_v2 CLI run
+    # that falls back to the reconstruction; the packed forms from the bf16
+    # paths (K-um-bf16 from solve_bf16's reconstruction)
     kernels = {
         "umuf": ("flowdenoising_tpu_torch/csrc/umuf.cu",
                  "flowdenoising_tpu/ops/pallas/umuf.py:87", "solve"),
@@ -1991,8 +2076,10 @@ def main() -> int:
         "um": ("flowdenoising_tpu_torch/csrc/um.cu",
                "flowdenoising_tpu/ops/pallas/update_matrices.py:54", "stage_report"),
         "uf": ("flowdenoising_tpu_torch/csrc/uf.cu",
-               "flowdenoising_tpu/ops/pallas/update_flow.py:32",
-               "solve_bf16_nobound"),
+               "flowdenoising_tpu/ops/pallas/update_flow.py:32", "stage_report"),
+        "umuf_split": ("flowdenoising_tpu_torch/csrc/umuf_split.cu",
+                       "flowdenoising_tpu/ops/pallas/update_flow.py:32",
+                       "solve_bf16_nobound"),
         "umuf_bf16": ("flowdenoising_tpu_torch/csrc/umuf.cu",
                       "flowdenoising_tpu/ops/pallas/umuf.py:87", "solve_bf16"),
         "compose_bf16": ("flowdenoising_tpu_torch/csrc/compose.cu",

@@ -36,11 +36,13 @@ from flowdenoising_tpu_torch.ops.farneback import split_route
 # planes of 128x1024 to 1024^2, in every tap mode and precision, at D 8,
 # 48 and no bound (scripts/torch_memory_peaks.py on one NVIDIA H100 80GB
 # HBM3): 15.29 (Gaussian), 85.31 (float32: solve, compose, symmetric,
-# --precision bfloat16), 97.39 (--dtype bfloat16), 227.91 (--dtype
-# bfloat16 with no bound, the split route: its phase 1 and gathers are
-# plain PyTorch, with int64 indices and a float32 M), rounded up.
+# --precision bfloat16), 97.39 (--dtype bfloat16), 108.10 (--dtype
+# bfloat16 with no bound, the split route, since its solves run in
+# K-umuf-split: its tap warps and compose chain gather in plain PyTorch,
+# with int64 indices; 227.91 while its phase 1 was plain PyTorch too),
+# rounded up.
 BYTES_PER_PADDED_VOXEL = {"gaussian": 16.0, "float32": 88.0,
-                          "bfloat16": 100.0, "bfloat16_nobound": 232.0}
+                          "bfloat16": 100.0, "bfloat16_nobound": 112.0}
 # What a presmoothed pass adds (its blurred float32 copy of the window:
 # 89.31 measured against 85.31).
 PRESMOOTH_BYTES_PER_PADDED_VOXEL = 4.0

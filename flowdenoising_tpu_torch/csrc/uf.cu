@@ -4,11 +4,11 @@
 // Replaces the Pallas TPU kernel flowdenoising_tpu/ops/pallas/
 // update_flow.py: _uf_kernel (reached through update_flow_pallas).  The
 // plain PyTorch version is flowdenoising_tpu_torch/ops/farneback.py:
-// update_flow_plain.  The port's float32 and bounded bf16 solvers run both
-// phases fused in K-umuf; this kernel is phase 2 of the split iteration
-// (ops/farneback.py: split_iterate), which the bf16 pass with no bound runs
-// at every level, after a bf16 phase 1 in plain PyTorch, as the JAX
-// package's TPU path does; the -v 2 stage report times it too.
+// update_flow_plain.  The port's solvers run both phases fused: K-umuf with
+// a bound or in float32, K-umuf-split (umuf_split.cu) in the bf16 pass with
+// no bound, where the JAX package's TPU path runs this kernel after a phase
+// 1 in XLA.  This kernel is B5's counterpart on its own, off the denoise
+// paths: the -v 2 stage report's reconstruction times it.
 //
 // M (B, 5, H, W) -> flow (B, 2, H, W): the replicate-border box sum of each
 // channel over (2r+1)^2, r = winsize/2, times float32(1/winsize^2)

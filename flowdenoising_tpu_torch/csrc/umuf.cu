@@ -86,14 +86,6 @@
 
 namespace {
 
-// Shared memory of one block: M (5 planes of (rh + r) x sw floats) and,
-// when k > 1, the flow carry (2 planes of rh x sw).
-__host__ __device__ inline size_t umuf_smem_bytes(int rh, int sw, int r,
-                                                  int k) {
-  return sizeof(float) * ((size_t)5 * (rh + r) * sw +
-                          (k > 1 ? (size_t)2 * rh * sw : 0));
-}
-
 template <typename T1>
 __global__ void __launch_bounds__(512, 2)
 umuf_kernel(const float* __restrict__ r0, const T1* __restrict__ r1,

@@ -50,6 +50,8 @@ SIGNATURES = {
     "fdt_umuf": _UMUF,
     "fdt_umuf_bf16": _UMUF,
     "fdt_umuf_smem": ([_I, _I, _I, _I, _I, _I], ctypes.c_longlong),
+    "fdt_umuf_split": ([_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+                        _P], _I),
     "fdt_update_flow": ([_P, _P, _I, _I, _I, _I, _F, _P], _I),
     "fdt_update_flow_smem": ([_I], ctypes.c_longlong),
     "fdt_update_matrices": _UM,

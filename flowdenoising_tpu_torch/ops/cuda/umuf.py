@@ -23,7 +23,7 @@ SMEM_PER_SM = 233472
 SMEM_PER_BLOCK = 232448
 SMEM_TWO_BLOCKS = SMEM_PER_SM // 2 - 1024
 # Output tiles (rows, columns) the planner tries, largest first.
-TILES = ((32, 64), (32, 32), (16, 32), (16, 16), (8, 16), (8, 8))
+TILES = ((32, 64), (32, 32), (16, 32), (16, 16), (8, 16), (8, 8), (4, 4))
 # The most phase-1 work a plan may do per output pixel, as a multiple of
 # the tile's: the context of k fused iterations is recomputed by the
 # neighbouring blocks, and past twice the tile's work that costs more than
@@ -69,17 +69,19 @@ def _phase1_work(h: int, w: int, r: int, k: int, tile_y: int,
 
 
 def plan_umuf(h: int, w: int, winsize: int, iters: int,
-              per_launch: int | None = None) -> UmufPlan:
+              per_launch: int | None = None,
+              smem_limit: int = SMEM_TWO_BLOCKS) -> UmufPlan:
     """The tile, the iterations per launch k and the shared memory of K-umuf
-    on (h, w) planes.
+    (and of K-umuf-split, which has its layout) on (h, w) planes.
 
     Without ``per_launch``: the largest k <= iters for which a tile of
     ``TILES`` fits two blocks on an SM while phase 1 does at most
     ``MAX_PHASE1_WORK`` times the tile's pixels, with the largest such tile;
     else k = 1 with the largest tile that fits.  ``per_launch`` fixes k (the
-    largest tile that fits).  The output is the same bit for bit for every
-    plan.  Raises ValueError when no tile fits at k = 1: the winsize's
-    window halo is too wide for the kernel's shared memory.
+    largest tile that fits).  ``smem_limit`` replaces the two blocks' share
+    of an SM (``SMEM_PER_BLOCK``: one block an SM).  The output is the same
+    bit for bit for every plan.  Raises ValueError when no tile fits at k =
+    1: the winsize's window halo is too wide for the kernel's shared memory.
     """
     if iters < 0 or winsize < 1 or h < 1 or w < 1:
         raise ValueError(f"plan_umuf: bad arguments h={h} w={w} "
@@ -97,7 +99,7 @@ def plan_umuf(h: int, w: int, winsize: int, iters: int,
             ty, tx = min(ty, h), min(tx, w)
             smem = umuf_smem_bytes(h, w, winsize, k, ty, tx)
             work = _phase1_work(h, w, r, k, ty, tx)
-            if smem > SMEM_TWO_BLOCKS or (limit and k > 1 and work > limit):
+            if smem > smem_limit or (limit and k > 1 and work > limit):
                 continue
             launches = (k,) * (iters // k) + ((iters % k,) if iters % k else ())
             return UmufPlan(ty, tx, k, launches, 512 if ty * tx >= 2048 else 256,

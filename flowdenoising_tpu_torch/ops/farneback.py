@@ -17,8 +17,8 @@ of the kernels K-um and K-uf (wrappers ``update_matrices`` and
 ``update_flow`` in ``ops.cuda.um``, ``ops.cuda.uf``).  With a bound, or in
 float32, the solver fuses 2+3: on a CUDA tensor each level's iterations
 run in K-umuf (``ops.cuda.umuf.umuf_iterate``) on every level, the smallest
-included; ``umuf_iterate_plain`` is its plain version.  K-um runs only in
-the ``-v 2`` stage report.
+included; ``umuf_iterate_plain`` is its plain version.  K-um and K-uf run
+only in the ``-v 2`` stage report.
 
 Layout: channel-first with the batch leading -- expansions (B, 5, H, W),
 flows (B, 2, H, W) with channel 0 = x -- so one slice range of a stack's
@@ -36,9 +36,14 @@ The bf16 fast mode, as the JAX package runs it on the TPU:
   (``_packed_at_level``).
 - ``--dtype bfloat16`` with no bound (``split_route``): the JAX package's
   fused kernel needs a bound, so every level runs its split iteration:
-  phase 1 in XLA in bf16 arithmetic (``update_matrices_xla``, plain
-  PyTorch here too) and phase 2 in its Pallas kernel B5 on a float32 copy
-  of M (K-uf, ``update_flow``), which returns a float32 flow.
+  phase 1 in XLA in bf16 arithmetic (``update_matrices_xla``) and phase 2
+  in its Pallas kernel B5 on a float32 copy of M, which returns a float32
+  flow.  The port runs both phases of all a level's iterations in one
+  kernel, K-umuf-split (``split_iterate`` ->
+  ``ops.cuda.umuf_split.umuf_split_iterate``, planned as K-umuf), which
+  rounds where that chain rounds; ``split_iterate_plain`` is its plain
+  version, the chain itself: ``update_matrices_xla`` then
+  ``update_flow_plain``.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from flowdenoising_tpu_torch.ops.blur import (
 from flowdenoising_tpu_torch.ops.cuda.uf import update_flow
 from flowdenoising_tpu_torch.ops.cuda.um import update_matrices
 from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
+from flowdenoising_tpu_torch.ops.cuda.umuf_split import umuf_split_iterate
 from flowdenoising_tpu_torch.ops.resize import (
     pyramid_sizes, resize_area, resize_linear)
 from flowdenoising_tpu_torch.ops.warp import (
@@ -63,13 +69,13 @@ __all__ = ["EXPANSION_RANGE", "SOLVE_RANGE", "farneback_flow",
            "flow_from_pyramids", "image_pyramid", "poly_exp_constants",
            "poly_expand",
            "polyexp_pyramid", "smoothed_level_image", "split_iterate",
-           "split_route", "tap_solver", "umuf_iterate", "umuf_iterate_plain",
-           "update_flow", "update_flow_plain", "update_matrices",
-           "update_matrices_plain", "update_matrices_xla"]
+           "split_iterate_plain", "split_route", "tap_solver", "umuf_iterate",
+           "umuf_iterate_plain", "update_flow", "update_flow_plain",
+           "update_matrices", "update_matrices_plain", "update_matrices_xla"]
 
 # The torch.profiler ranges by which the -v 2 measured report
 # (utils.trace_report) finds the kernels of the expansion pyramid and of the
-# split route's plain PyTorch phase 1.
+# split route's solves.
 EXPANSION_RANGE = "OFE_expansion"
 SOLVE_RANGE = "OFE_solve"
 
@@ -233,8 +239,8 @@ def update_matrices_xla(r0: torch.Tensor, r1: torch.Tensor,
     operation takes the wider of its operands' dtypes (a float32 flow makes
     the sampled values and M float32, a bfloat16 one leaves them bf16).
     r0, r1: (..., 5, H, W) of one dtype; flow: (..., 2, H, W).  Returns M
-    (..., 5, H, W) in the promoted dtype.  Plain PyTorch on any device: the
-    JAX package has no kernel for it.
+    (..., 5, H, W) in the promoted dtype.  Phase 1 of
+    ``split_iterate_plain``; K-umuf-split computes it on the card.
     """
     h, w = r0.shape[-2], r0.shape[-1]
     dx = flow[..., 0, :, :]
@@ -261,18 +267,27 @@ def update_flow_plain(m: torch.Tensor, winsize: int) -> torch.Tensor:
     return torch.stack([u, v], dim=-3)
 
 
+def split_iterate_plain(r0: torch.Tensor, r1: torch.Tensor,
+                        flow: torch.Tensor, iters: int,
+                        winsize: int) -> torch.Tensor:
+    """Plain version of K-umuf-split: ``iters`` Farneback iterations with
+    no bound as the JAX package's split iteration runs them on the TPU,
+    phase 1 ``update_matrices_xla``, then phase 2 on a float32 copy of M.
+    Returns the float32 flow of the last iteration."""
+    for _ in range(iters):
+        flow = update_flow_plain(update_matrices_xla(r0, r1, flow).float(),
+                                 winsize)
+    return flow
+
+
 def split_iterate(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
                   iters: int, winsize: int) -> torch.Tensor:
-    """``iters`` Farneback iterations with no bound as the JAX package's
-    split iteration runs them on the TPU: phase 1 ``update_matrices_xla``,
-    then K-uf (``update_flow``) on a float32 copy of M.  Returns the
-    float32 flow of the last iteration."""
-    for _ in range(iters):
-        with torch.profiler.record_function(SOLVE_RANGE):
-            m = update_matrices_xla(r0, r1, flow).float().contiguous()
-        flow = update_flow(m, winsize)
-        del m
-    return flow
+    """The split route's ``iters`` iterations at one level (r0, r1 bf16
+    (B, 5, H, W), flow bf16 or float32 (B, 2, H, W)) in the profiler range
+    ``SOLVE_RANGE``: K-umuf-split on the card, ``split_iterate_plain`` on
+    the CPU (``umuf_split_iterate``).  Returns the float32 flow."""
+    with torch.profiler.record_function(SOLVE_RANGE):
+        return umuf_split_iterate(r0, r1, flow, iters, winsize)
 
 
 def umuf_iterate_plain(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
@@ -378,7 +393,8 @@ def _solve_levels(levels, cfg: FlowConfig, initial_flow: torch.Tensor | None,
         else:
             flow = resize_linear(flow, (hk, wk)) * (1.0 / cfg.pyr_scale)
         if split:
-            flow = split_iterate(r0, r1, flow, cfg.iterations, cfg.winsize)
+            flow = split_iterate(r0, r1, flow.contiguous(), cfg.iterations,
+                                 cfg.winsize)
             continue
         if round_level_flow and not _tiny_level(d, hk, wk):
             flow = flow.to(torch.bfloat16).float()

@@ -6,12 +6,12 @@ of the reference GPU variant's OFE / warping / convolution accumulators.
 exports the Chrome trace; ``measured_stage_report`` sums the device events
 of that trace by stage:
 
-- ``OFE_solve``     -- the flow-iteration kernels K-umuf, K-compose,
-                       K-compose-run, K-um and K-uf (the kernels that
-                       return flow stacks, and the compose pass), and every
-                       other kernel inside a ``torch.profiler`` range named
-                       ``OFE_solve`` (the split route's bf16 phase 1 and
-                       compose chain, plain PyTorch operations);
+- ``OFE_solve``     -- the flow-iteration kernels K-umuf, K-umuf-split,
+                       K-compose, K-compose-run, K-um and K-uf (the kernels
+                       that return flow stacks, and the compose pass), and
+                       every other kernel inside a ``torch.profiler`` range
+                       named ``OFE_solve`` (the split route's compose chain,
+                       plain PyTorch operations);
 - ``warping``       -- K-sample, and every other kernel inside a range
                        named ``warping`` (the split route's bf16 gather);
 - ``OFE_expansion`` -- every other kernel inside a range named
@@ -41,7 +41,7 @@ import torch
 from flowdenoising_tpu_torch.ops.farneback import EXPANSION_RANGE, SOLVE_RANGE
 from flowdenoising_tpu_torch.ops.warp import WARP_RANGE
 
-_SOLVE = re.compile(r"\b(umuf|compose|compose_run|um|uf)_kernel\b")
+_SOLVE = re.compile(r"\b(umuf|umuf_split|compose|compose_run|um|uf)_kernel\b")
 _WARP = re.compile(r"\bsample_kernel\b")
 # the stage of the kernels inside each of the port's profiler ranges
 _RANGES = {EXPANSION_RANGE: "OFE_expansion", SOLVE_RANGE: "OFE_solve",

@@ -2,7 +2,7 @@
 the data that ``flowdenoising_tpu_torch/core/memory.py``'s slab model is
 fitted to.
 
-    python3 scripts/torch_memory_peaks.py [--json peaks.jsonl]
+    python3 scripts/torch_memory_peaks.py [--json peaks.jsonl] [--forms F ...]
 
 For each pass form (the no-flow Gaussian; solve at D 8, 48 and no bound;
 solve presmoothed; compose, symmetric compose; the bf16 forms, with a
@@ -14,7 +14,8 @@ counts, and that peak in bytes per padded voxel (n + 2*ks2) * h * w.
 ``max_memory_reserved`` beside it says what the caching allocator held.
 Then whether a pass over slabs of the window equals the whole pass bit for
 bit (``scripts/torch_resize_batch_check.py`` looks at larger planes).
-One JSON line per measurement.
+One JSON line per measurement.  ``--forms`` measures only the named
+forms and skips the slab comparison.
 """
 
 from __future__ import annotations
@@ -54,7 +55,10 @@ WINDOWS = [(64, 256, 256), (256, 256, 256), (32, 512, 512), (128, 512, 512),
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None, help="also write the lines here")
+    ap.add_argument("--forms", nargs="+", choices=sorted(FORMS), default=None,
+                    help="measure only these pass forms")
     args = ap.parse_args()
+    forms = {k: FORMS[k] for k in args.forms} if args.forms else FORMS
     import numpy as np
     import torch
 
@@ -85,7 +89,7 @@ def main() -> int:
     r = np.random.default_rng(0)
     for n, h, w in WINDOWS:
         host = (r.normal(size=(n + 2 * ks2, h, w)) * 40 + 100).astype(np.float32)
-        for name, fields in FORMS.items():
+        for name, fields in forms.items():
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             base = torch.cuda.memory_allocated()
@@ -103,7 +107,7 @@ def main() -> int:
     # slabs against the whole pass, on one window of 256 output planes
     host = (r.normal(size=(256 + 2 * ks2, 256, 256)) * 40 + 100).astype(np.float32)
     window = torch.from_numpy(host).to(dev)
-    for name in ("gaussian", "solve", "compose"):
+    for name in () if args.forms else ("gaussian", "solve", "compose"):
         whole = run(FORMS[name], window)
         for slab in (76, 64):
             parts = [run(FORMS[name], window[s:s + slab + 2 * ks2])

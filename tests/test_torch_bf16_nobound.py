@@ -5,7 +5,9 @@ With no bound the JAX package's fused kernels do not run
 (``flowdenoising_tpu/ops/farneback.py: _iterate_level``): every level runs
 the split iteration, phase 1 ``update_matrices(r0, r1, flow, None)`` in XLA
 in bf16 arithmetic and phase 2 in the Pallas kernel B5
-(``update_flow_pallas``) on a float32 copy of M; every warp is the exact
+(``update_flow_pallas``) on a float32 copy of M (the port's plain version
+``split_iterate_plain``, which the CPU runs here; the card runs
+K-umuf-split, held to it bit for bit by tests/test_torch_cuda.py); every warp is the exact
 gather in bf16 (``ops/warp.py: displace_sample``), and the compose pass
 runs its tap chain in XLA (``core/axis_filter.py: body_of``, no fused
 step).  The oracle is those JAX functions run eagerly, never inside a jit
@@ -192,10 +194,10 @@ def test_level_iteration_matches_jax(pyramid, jc):
     r0, r1 = r[:-1], r[1:]
     flow = jnp.zeros(r0.shape[:-1] + (2,), BF16)
     ref = JF._iterate_level(r0, r1, flow, jc, level=1)
-    before = K.LAUNCHES["uf"]
+    before = dict(K.LAUNCHES)
     out = F.split_iterate(jax_of(r0), jax_of(r1), jax_of(flow), jc.iterations,
                           jc.winsize)
-    assert K.LAUNCHES["uf"] == before    # a CPU tensor: the plain version
+    assert K.LAUNCHES == before    # a CPU tensor: the plain version
     assert out.dtype == torch.float32 and jnp.dtype(ref.dtype) == jnp.float32
     diff = np.abs(out.numpy() - jax_of(ref).numpy())
     print(f"level iteration: max abs diff {diff.max():.3g} px")

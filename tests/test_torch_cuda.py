@@ -27,6 +27,8 @@ from flowdenoising_tpu_torch.ops.cuda.uf import update_flow
 from flowdenoising_tpu_torch.ops.cuda.um import update_matrices
 from flowdenoising_tpu_torch.ops.cuda.build import load_library
 from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf, umuf_iterate
+from flowdenoising_tpu_torch.ops.cuda.umuf_split import (
+    plan_split, umuf_split_iterate)
 from flowdenoising_tpu_torch.ops.resize import resize_area, resize_linear
 from flowdenoising_tpu_torch.ops.warp import displace_sample, displace_sample_plain
 
@@ -83,6 +85,38 @@ def test_umuf_kernel_matches_plain(dev, b, h, w, winsize, d, per_launch):
     ref = F.umuf_iterate_plain(rr[0], rr[1], flow, 3, d, winsize)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, atol=5e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("flow_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,h,w,winsize,per_launch", [
+    (2, 64, 64, 5, None), (3, 40, 261, 5, None), (2, 8, 1030, 5, None),
+    (2, 37, 70, 7, 1), (2, 37, 70, 7, 2), (2, 20, 22, 4, None),
+    (1, 3, 3, 5, None), (2, 100, 130, 15, None), (2, 100, 130, 15, 3),
+    (1, 300, 40, 5, 3), (1, 96, 96, 61, None), (8, 256, 256, 5, None),
+])
+def test_umuf_split_kernel_matches_plain(dev, b, h, w, winsize, per_launch,
+                                         flow_dtype):
+    # K-umuf-split: bf16 expansions, a bf16 or float32 flow with bands 40 px
+    # past two edges (no bound); bit for bit split_iterate_plain; winsize 61
+    # takes one block an SM (plan_split)
+    r = np.random.default_rng(h * w + winsize)
+    imgs = _t(r.normal(size=(2, b, h, w)) * 40, dev).to(torch.bfloat16)
+    rr = F.poly_expand(imgs).contiguous()
+    flow = r.normal(size=(b, 2, h, w)) * 2
+    flow[:, 0, : h // 4] += 40
+    flow[:, 1, :, : w // 3] -= 40
+    flow = _t(flow, dev).to(getattr(torch, flow_dtype))
+    plan = plan_split(h, w, winsize, 3, per_launch)
+    assert plan.smem == load_library().fdt_umuf_smem(
+        h, w, winsize, plan.per_launch, plan.tile_y, plan.tile_x)
+    before = dict(K.LAUNCHES)
+    out = umuf_split_iterate(rr[0], rr[1], flow, 3, winsize, per_launch)
+    assert K.LAUNCHES == {**before,
+                          "umuf_split": before["umuf_split"] + len(plan.launches)}
+    ref = F.split_iterate_plain(rr[0], rr[1], flow, 3, winsize)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("b,h,w,d,scale", [
@@ -347,6 +381,22 @@ def test_wrappers_refuse_what_they_do_not_take(dev):
         update_matrices(r, r.half(), f, 2)
     with pytest.raises(ValueError):
         compose_tap(f.to(torch.bfloat16), f, src, src, 0.5, 2, 0, 0)
+    # K-umuf-split takes bf16 r0 and r1 and a bf16 or float32 flow, all
+    # contiguous on the card, and K-uf's winsizes (to 85)
+    rb = r.to(torch.bfloat16)
+    before = K.LAUNCHES["umuf_split"]
+    with pytest.raises(ValueError):
+        umuf_split_iterate(r, rb, f, 1, 5)
+    with pytest.raises(ValueError):
+        umuf_split_iterate(rb, rb, f.double(), 1, 5)
+    with pytest.raises(ValueError):
+        umuf_split_iterate(rb, rb.cpu(), f, 1, 5)
+    with pytest.raises(ValueError):
+        umuf_split_iterate(rb, rb, f.transpose(2, 3), 1, 5)
+    with pytest.raises(ValueError, match="halo"):
+        umuf_split_iterate(rw.to(torch.bfloat16), rw.to(torch.bfloat16), fw, 1,
+                           87)
+    assert K.LAUNCHES["umuf_split"] == before
 
 
 @pytest.mark.parametrize("tap_mode,presmooth,bf16", [
@@ -374,17 +424,21 @@ def test_denoise_card_matches_cpu(dev, tap_mode, presmooth, bf16):
     {}, {"tap_mode": "compose", "symmetric_adjacent": True,
          "precision": "bfloat16"}], ids=["solve_bf16_nobound", "fast_nobound"])
 def test_bf16_nobound_denoise_on_the_card(dev, fields):
-    # the split route: K-uf once a level and iteration of every solve (8
-    # taps a pass in solve mode, one adjacent solve in symmetric compose;
-    # 2 levels in the Z pass, 1 in the Y and X passes' 12 x 64 planes; 3
-    # iterations), no other kernel; the card equals the CPU bit for bit
+    # the split route: K-umuf-split at every level of every solve as its
+    # planner plans it (8 taps a pass in solve mode, one adjacent solve in
+    # symmetric compose; 2 levels in the Z pass, 1 in the Y and X passes'
+    # 12 x 64 planes; 3 iterations, one launch a level), no K-uf and no
+    # other kernel; the card equals the CPU bit for bit
     cfg = FilterConfig(sigma=(1.0, 1.0, 1.0), flow=FlowConfig(
         dtype="bfloat16", max_displacement=None, levels=1, **fields))
     vol = _blob_like((12, 64, 64), 2)
     K.reset_launches()
     on_card = denoise(vol, cfg).cpu().numpy()
     want = dict.fromkeys(K.LAUNCHES, 0)
-    want["uf"] = 3 * (1 if fields else 8) * (2 + 1 + 1)
+    levels = [(64, 64), (32, 32), (12, 64), (12, 64)]
+    want["umuf_split"] = (1 if fields else 8) * sum(
+        len(plan_split(h, w, 5, 3).launches) for h, w in levels)
+    assert want["umuf_split"] == (1 if fields else 8) * 4
     assert K.LAUNCHES == want
     np.testing.assert_array_equal(on_card, denoise(vol, cfg, device="cpu").numpy())
 

@@ -158,22 +158,22 @@ PASS_PEAKS = [
     ("solve_dtype_bf16", 64, 1024, 128, 919076864),
     ("compose_bf16", 64, 1024, 128, 767131648),
     ("fast", 64, 1024, 128, 725188608),
-    ("solve_bf16_nobound", 64, 256, 256, 1011255296),
-    ("fast_nobound", 64, 256, 256, 1190234112),
-    ("solve_bf16_nobound", 256, 256, 256, 3984361472),
-    ("fast_nobound", 256, 256, 256, 4062676992),
-    ("solve_bf16_nobound", 32, 512, 512, 2062946304),
-    ("fast_nobound", 32, 512, 512, 2824998912),
-    ("solve_bf16_nobound", 128, 512, 512, 8009158656),
-    ("fast_nobound", 128, 512, 512, 8569884672),
-    ("solve_bf16_nobound", 16, 1024, 1024, 4287635456),
-    ("fast_nobound", 16, 1024, 1024, 7441752064),
-    ("solve_bf16_nobound", 64, 1024, 1024, 16180060160),
-    ("fast_nobound", 64, 1024, 1024, 18931523584),
-    ("solve_bf16_nobound", 64, 128, 1024, 2020873216),
-    ("fast_nobound", 64, 128, 1024, 2376340480),
-    ("solve_bf16_nobound", 64, 1024, 128, 2020873216),
-    ("fast_nobound", 64, 1024, 128, 2376340480),
+    ("solve_bf16_nobound", 64, 256, 256, 512132096),
+    ("fast_nobound", 64, 256, 256, 492569600),
+    ("solve_bf16_nobound", 256, 256, 256, 1853654016),
+    ("fast_nobound", 256, 256, 256, 1927021568),
+    ("solve_bf16_nobound", 32, 512, 512, 997591040),
+    ("fast_nobound", 32, 512, 512, 1013975040),
+    ("solve_bf16_nobound", 128, 512, 512, 3747743744),
+    ("fast_nobound", 128, 512, 512, 3882878976),
+    ("solve_bf16_nobound", 16, 1024, 1024, 2156924928),
+    ("fast_nobound", 16, 1024, 1024, 2139099136),
+    ("solve_bf16_nobound", 64, 1024, 1024, 7657230336),
+    ("fast_nobound", 64, 1024, 1024, 7876907008),
+    ("solve_bf16_nobound", 64, 128, 1024, 955517440),
+    ("fast_nobound", 64, 128, 1024, 985139712),
+    ("solve_bf16_nobound", 64, 1024, 128, 955517440),
+    ("fast_nobound", 64, 1024, 128, 985139712),
 ]
 
 
@@ -215,13 +215,15 @@ def test_whole_axis_at_the_cards_budget(form, shape, streamed):
 @pytest.mark.parametrize("form", sorted(NOBOUND_FORMS))
 @pytest.mark.parametrize("streamed", [False, True])
 def test_nobound_slabs_at_the_cards_budget(form, streamed):
-    # its own entry: the whole axis at 256^3 and 512^3, and slabs of the
-    # tomogram's 512 x 1024 x 1024 Z pass, each window under the budget
+    # its own entry: the whole axis at 256^3 and 512^3; the tomogram's
+    # 512 x 1024 x 1024 Z pass whole in memory, and in slabs when streamed
+    # (the next window and the last output beside the pass), each window
+    # under the budget
     cfg = _cfg(form)
     for n in (256, 512):
         assert memory.pass_slab(cfg, n, n, n, 8, H100_BUDGET, streamed) is None
     slab = memory.pass_slab(cfg, 512, 1024, 1024, 8, H100_BUDGET, streamed)
-    assert slab is not None and slab < 512
+    assert (slab is not None and slab < 512) == streamed
     assert memory.window_peak_bytes(cfg, 512, 1024, 1024, 8, slab,
                                     streamed) <= H100_BUDGET
 
@@ -288,8 +290,8 @@ def test_forms_order():
     b = {f: memory.bytes_per_padded_voxel(_cfg(f)) for f in FORMS}
     assert b["gaussian"] < b["solve"] == b["compose"] == b["solve_precision_bf16"]
     assert b["solve"] < b["presmooth"] and b["solve"] < b["solve_dtype_bf16"]
-    # with no bound the bf16 pass runs its phase 1 and gathers in plain
-    # PyTorch: the most of all
+    # with no bound the bf16 pass gathers its tap warps and compose chain
+    # in plain PyTorch, with int64 indices: the most of all
     for form in NOBOUND_FORMS:
         assert memory.bytes_per_padded_voxel(_cfg(form)) > max(b.values())
 

@@ -136,7 +136,7 @@ def test_from_reference_round_trips(jcfg):
 def test_nvcc_command_targets_sm_90a():
     srcs = build.sources()
     assert [s.name for s in srcs] == ["compose.cu", "sample.cu", "uf.cu",
-                                      "um.cu", "umuf.cu"]
+                                      "um.cu", "umuf.cu", "umuf_split.cu"]
     for src in srcs:
         cmd = build.compile_command(src, Path("x.o"))
         assert "arch=compute_90a,code=sm_90a" in cmd

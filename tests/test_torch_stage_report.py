@@ -94,12 +94,15 @@ def test_measured_report_groups_kernels(tmp_path, caplog):
 
 
 def test_measured_report_reads_the_split_routes_ranges(tmp_path):
-    # a bf16 pass with no bound: its phase 1 (and compose chain) and its
-    # gathers are plain PyTorch kernels inside the OFE_solve and warping
-    # ranges; K-uf is OFE_solve by name
+    # a bf16 pass with no bound: its compose chain and its gathers are
+    # plain PyTorch kernels inside the OFE_solve and warping ranges; its
+    # solves, K-umuf-split (both flow forms), are OFE_solve by name, as K-uf
+    # (the -v 2 reconstruction) is
     ew = ("void at::native::vectorized_elementwise_kernel<4, "
           "at::native::CUDAFunctor_add<c10::BFloat16> >(int, float*)")
     gather = "void at::native::_scatter_gather_elementwise_kernel<128, 8>(int)"
+    split = ("void (anonymous namespace)::umuf_split_kernel<{}>(__nv_bfloat16 "
+             "const*, __nv_bfloat16 const*, {} const*, float*, int)")
     events = [
         {"ph": "X", "cat": "gpu_user_annotation", "name": "OFE_solve",
          "pid": 0, "tid": 7, "ts": 100.0, "dur": 900.0, "args": {}},
@@ -107,13 +110,15 @@ def test_measured_report_reads_the_split_routes_ranges(tmp_path):
         _kernel(gather, 400.0, 1_000_000),
         _kernel("void (anonymous namespace)::uf_kernel(float const*)", 1000.0,
                 500_000),
+        _kernel(split.format("__nv_bfloat16", "__nv_bfloat16"), 1200.0, 125_000),
+        _kernel(split.format("float", "float"), 1500.0, 625_000),
         {"ph": "X", "cat": "gpu_user_annotation", "name": "warping",
          "pid": 0, "tid": 7, "ts": 2000.0, "dur": 500.0, "args": {}},
         _kernel(gather, 2000.0, 2_000_000),
         _kernel(ew, 3000.0, 250_000),
     ]
     totals = measured_stage_report(_write(tmp_path, events))
-    want = {"OFE_solve": 4.5, "warping": 2.0, "OFE_expansion": 0.0,
+    want = {"OFE_solve": 5.25, "warping": 2.0, "OFE_expansion": 0.0,
             "elementwise": 0.25, "async_copies": 0.0}
     for key, secs in want.items():
         assert totals[key] == pytest.approx(secs, abs=1e-12), key

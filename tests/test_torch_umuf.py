@@ -98,7 +98,7 @@ def test_cpu_wrapper_counts_no_launch_and_checks_shapes():
 # --- the kernel's decomposition (csrc/umuf.cu), emulated on the CPU ---
 
 def _tiled_emulation(r0, r1, flow, iters, d, winsize, tile_y, tile_x, k,
-                     short=0, ramp_bf16=False):
+                     short=0, ramp_bf16=False, split=False):
     """K-umuf's decomposition in plain PyTorch: ceil(iters / k) launches; in
     each, every tile_y x tile_x output tile starts from the flow on the tile
     grown by k*r (r = winsize // 2), clamped to the plane; iteration j
@@ -108,10 +108,19 @@ def _tiled_emulation(r0, r1, flow, iters, d, winsize, tile_y, tile_x, k,
     past it would show.  ``short`` starts each tile from a flow region that
     many pixels narrower than k*r, a halo the kernel must not have;
     ``ramp_bf16`` rounds the border ramp to bfloat16, as the kernel's flag
-    does."""
+    does.  ``split`` takes K-umuf-split's phase 1 (``update_matrices_xla``
+    on bf16 r0 and r1, no bound, M widened to float32) and its flows: the
+    input flow, bf16 or float32, in the first iteration only, the float32
+    carry after it."""
     b, _, h, w = flow.shape
     r = winsize // 2
-    nan = torch.full_like(flow, float("nan"))
+    nan = torch.full(flow.shape, float("nan"))
+
+    def phase1(f):
+        if split:
+            return F.update_matrices_xla(r0, r1, f).float()
+        return F.update_matrices_plain(r0, r1, f, d, ramp_bf16)
+
     for n in (k,) * (iters // k) + ((iters % k,) if iters % k else ()):
         out = nan.clone()
         for ty0 in range(0, h, tile_y):
@@ -122,7 +131,7 @@ def _tiled_emulation(r0, r1, flow, iters, d, winsize, tile_y, tile_x, k,
                     return (slice(max(ty0 - c, 0), min(ty1 + c, h)),
                             slice(max(tx0 - c, 0), min(tx1 + c, w)))
 
-                f = nan.clone()
+                f = torch.full_like(flow, float("nan"))
                 fy, fx = grown(n * r - short)
                 f[..., fy, fx] = flow[..., fy, fx]
                 for j in range(n):
@@ -131,8 +140,7 @@ def _tiled_emulation(r0, r1, flow, iters, d, winsize, tile_y, tile_x, k,
                     # keep the region; the box sum replicates the region's
                     # edges, which are the plane's or lie r outside the
                     # flow region kept below, as far as its windows reach
-                    m = F.update_matrices_plain(r0, r1, f, d,
-                                                ramp_bf16)[..., my, mx]
+                    m = phase1(f)[..., my, mx]
                     new = F.update_flow_plain(m, winsize)
                     oy, ox = grown((n - 1 - j) * r)
                     f = nan.clone()
@@ -321,3 +329,55 @@ def test_gather_plans_are_the_float32_forms(args, want):
     shared memory the card's times were taken at."""
     p = plan_umuf(*args)
     assert (p.tile_y, p.tile_x, p.per_launch, p.launches, p.threads, p.smem) == want
+
+
+# --- the split form (K-umuf-split): bf16 r0 and r1, no bound, on the same
+# plan; its own tests are tests/test_torch_umuf_split.py ---
+
+def _split_setup(b, h, w, seed, flow_dtype):
+    """bf16 expansions of noise images (the split route's pyramid levels
+    are bf16) and a flow N(0, 2) with bands pushed 40 px past the plane's
+    right and top edges, in ``flow_dtype``."""
+    r = np.random.default_rng(seed)
+    imgs = torch.from_numpy((r.normal(size=(2, b, h, w)) * 40).astype(np.float32))
+    rr = F.poly_expand(imgs.to(torch.bfloat16)).contiguous()
+    flow = torch.from_numpy((r.normal(size=(b, 2, h, w)) * 2).astype(np.float32))
+    flow[:, 0, : h // 4] += 40.0
+    flow[:, 1, :, : w // 3] -= 40.0
+    return rr[0], rr[1], flow.to(getattr(torch, flow_dtype))
+
+
+@pytest.mark.parametrize("flow_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("h,w,winsize,iters,k,tile", [
+    (40, 261, 5, 3, None, None),          # past 256: bf16 coordinates round
+    (37, 70, 7, 3, 2, (8, 16)),           # launches of 2 and 1
+    (20, 24, 4, 3, 1, None),              # even winsize, one iteration a launch
+    (3, 3, 5, 2, None, None),             # plane smaller than the tile
+    (70, 45, 15, 3, None, None),
+    (8, 300, 5, 3, 3, (8, 64)),
+])
+def test_tiled_emulation_of_the_split_form_equals_plain_bitwise(
+        h, w, winsize, iters, k, tile, flow_dtype):
+    """K-umuf-split's tiling, from a bf16 or a float32 input flow, equals
+    split_iterate_plain bit for bit at the plans plan_umuf gives."""
+    r0, r1, flow = _split_setup(1, h, w, h * w + winsize, flow_dtype)
+    plan = plan_umuf(h, w, winsize, iters, k)
+    ty, tx = tile if tile else (plan.tile_y, plan.tile_x)
+    got = _tiled_emulation(r0, r1, flow, iters, None, winsize, ty, tx,
+                           plan.per_launch, split=True)
+    ref = F.split_iterate_plain(r0, r1, flow, iters, winsize)
+    assert got.dtype == ref.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("flow_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("winsize,k", [(3, 1), (5, 1), (5, 2), (5, 3), (4, 3)])
+def test_tiled_emulation_of_the_split_form_with_a_halo_one_short_shows(
+        winsize, k, flow_dtype):
+    """The NaN check bites for the split form too, from either input
+    flow."""
+    r0, r1, flow = _split_setup(1, 48, 48, winsize * 10 + k, flow_dtype)
+    got = _tiled_emulation(r0, r1, flow, k, None, winsize, 16, 16, k, short=1,
+                           split=True)
+    assert torch.isnan(got[..., 16:32, 16:32]).any()
