@@ -121,6 +121,22 @@ Phases, one or more lines of output each (any failure exits non-zero):
 8. io      -- the CLI's read and write of a 512^3 float32 MRC through
                libfdio and through the NumPy path, in turns: the same
                array and the same file bytes, and their walls.
+9. api     -- (run after phase 5) the JAX package's public API on the
+               card, on phase 4's noisy volume (sigma 2, D 8, wrap): of_pass
+               of the Z axis in solve, compose and fast, and gaussian_pass,
+               each bit for bit pass 0 of denoise / gaussian_denoise (taken
+               through on_pass); prepped_tap_solver bit for bit tap_solver
+               for a seeded tap; warp_slices and bilinear_displace_windowed
+               bit for bit K-sample's output, warp_slices also on one plane,
+               on a (2, size/2, size, size) stack and on NumPy inputs, and
+               farneback_flow on NumPy inputs bit for bit on tensors, each
+               entry point with the kernel launches it must make; psnr and
+               ssim of the solve output against the clean volume on the
+               card, within 1e-9 relative of the NumPy formulas on the
+               host; device_trace around a warm solve denoise with an
+               annotate range inside: the trace's kernel events count the
+               K-umuf and K-sample launches the tap and level loops imply
+               (192 and 48 at 256^3), and the range is in the trace.
 
     python3 chip_smoke.py --stream_shape 512x1024x1024   # phases 1, 2, 6
 
@@ -286,8 +302,8 @@ def phase_kernels(dev, seed: int) -> dict:
     from flowdenoising_tpu_torch.ops.cuda.compose import (
         compose_tap, compose_tap_plain)
     from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf, umuf_iterate
-    from flowdenoising_tpu_torch.ops.warp import (
-        displace_sample, displace_sample_plain)
+    from flowdenoising_tpu_torch.ops.cuda.sample import displace_sample
+    from flowdenoising_tpu_torch.ops.warp import displace_sample_plain
 
     r = np.random.default_rng(seed)
     res = {}
@@ -373,7 +389,7 @@ def phase_kernels(dev, seed: int) -> dict:
 
     def umuf_operands(b, h, w, d):
         imgs = t(r.normal(size=(2, b, h, w)) * 40)
-        return (F.poly_expand(imgs).contiguous(),
+        return (F.poly_expand(imgs, channel_first=True).contiguous(),
                 t(r.normal(size=(b, 2, h, w)) * 1.5 * d / 9))
 
     err = 0.0
@@ -488,7 +504,8 @@ def phase_kernels(dev, seed: int) -> dict:
     # report's (8, 5, 256, 256); flows N(0, 1.5) with a band pushed beyond
     # +-d; atol 5e-4, rtol 1e-4 (tests/test_pallas_um.py)
     err, main = 0.0, None
-    rr = F.poly_expand(t(r.normal(size=(2, 256, 256, 256)) * 40)).contiguous()
+    rr = F.poly_expand(t(r.normal(size=(2, 256, 256, 256)) * 40),
+                       channel_first=True).contiguous()
     for b, d in ((256, 9), (256, None), (8, 9)):
         r0, r1 = rr[0, :b], rr[1, :b]
         flow = banded_flow(b, 256, 256, d, scale=1.5)
@@ -547,7 +564,8 @@ def phase_kernels(dev, seed: int) -> dict:
     # timed at level 0, the path's largest call, beside the phase 1 that
     # makes its M (plain PyTorch, as the JAX package's is XLA)
     for size in (256, 128, 64, 32):
-        rr = F.poly_expand(t(r.normal(size=(2, 256, size, size)) * 40).to(torch.bfloat16))
+        rr = F.poly_expand(t(r.normal(size=(2, 256, size, size)) * 40).to(torch.bfloat16),
+                           channel_first=True)
         flow = (banded_flow(256, size, size, None, scale=1.5) * (size / 256)
                 ).to(torch.bfloat16)
         phase1 = lambda: F.update_matrices_xla(rr[0], rr[1], flow).float().contiguous()
@@ -595,7 +613,8 @@ def split_forms(r, t, banded_flow) -> dict:
     bf16 = torch.bfloat16
 
     def operands(b, h, w, flow_scale):
-        rr = F.poly_expand(t(r.normal(size=(2, b, h, w)) * 40).to(bf16)).contiguous()
+        rr = F.poly_expand(t(r.normal(size=(2, b, h, w)) * 40).to(bf16),
+                           channel_first=True).contiguous()
         return rr, banded_flow(b, h, w, None, scale=1.5) * flow_scale
 
     def same(what, rr, flow, ws=5, k=None):
@@ -882,7 +901,8 @@ def packed_forms(r, t, banded_flow, umuf_operands) -> dict:
 
     # K-um-bf16: the -v 2 reconstruction's call (8, 5, 256, 256) at d 9,
     # and the main shape (256, 5, 256, 256) beside the float32 form's
-    rr = F.poly_expand(t(r.normal(size=(2, 256, 256, 256)) * 40)).contiguous()
+    rr = F.poly_expand(t(r.normal(size=(2, 256, 256, 256)) * 40),
+                       channel_first=True).contiguous()
     err, main = 0.0, None
     for b in (256, 8):
         r0, r1b = rr[0, :b], rr[1, :b].to(bf16)
@@ -1463,6 +1483,228 @@ def phase_e2e(dev, seed: int) -> None:
         print(f"[5 e2e] 24x96x96 {name} denoise, card (kernels) vs CPU (plain): "
               f"PSNR {p:.2f} dB (bar 55), {same}; max abs diff "
               f"{float(np.abs(on_card - on_cpu).max()):.3g}", flush=True)
+
+
+def host_psnr(a: np.ndarray, b: np.ndarray) -> float:
+    """The JAX package's PSNR formula in NumPy (utils/metrics.py there):
+    float64, peak the range of ``a``."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    mse = float(np.mean((a - b) ** 2))
+    peak = float(max(a.max() - a.min(), 1e-12))
+    return float("inf") if mse == 0 else float(10.0 * np.log10(peak * peak / mse))
+
+
+def host_ssim(a: np.ndarray, b: np.ndarray) -> float:
+    """The JAX package's SSIM formula in NumPy: the 11-tap sigma-1.5
+    Gaussian window over a symmetric pad, per Z slice, averaged."""
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    x = np.arange(-5, 6, dtype=np.float64)
+    g = np.exp(-(x * x) / (2 * 1.5 * 1.5))
+    g /= g.sum()
+    peak = float(max(a.max() - a.min(), 1e-12))
+    c1, c2 = (0.01 * peak) ** 2, (0.03 * peak) ** 2
+
+    def filt(img):
+        p = np.pad(img, 5, mode="symmetric")
+        v = sliding_window_view(p, 11, axis=0)
+        out = np.einsum("ijk,k->ij", v[:, :img.shape[1] + 10], g)
+        return np.einsum("ijk,k->ij", sliding_window_view(out, 11, axis=1), g)
+
+    vals = []
+    for za, zb in zip(a, b):
+        mu_a, mu_b = filt(za), filt(zb)
+        s_aa = filt(za * za) - mu_a * mu_a
+        s_bb = filt(zb * zb) - mu_b * mu_b
+        s_ab = filt(za * zb) - mu_a * mu_b
+        num = (2 * mu_a * mu_b + c1) * (2 * s_ab + c2)
+        den = (mu_a ** 2 + mu_b ** 2 + c1) * (s_aa + s_bb + c2)
+        vals.append(float(np.mean(num / den)))
+    return float(np.mean(vals))
+
+
+def phase_api(dev, size: int, seed: int, card: str) -> None:
+    """The JAX package's public API on the card (phase 9; see the module
+    docstring).  Every check is bit for bit, except the metrics' 1e-9."""
+    from collections import Counter
+
+    from flowdenoising_tpu_torch import farneback_flow, warp_slices
+    from flowdenoising_tpu_torch.config import Boundary, FilterConfig, FlowConfig
+    from flowdenoising_tpu_torch.core import (
+        denoise, gaussian_denoise, gaussian_pass, of_pass, pad_stack)
+    from flowdenoising_tpu_torch.core.pipeline import pass_slab
+    from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
+    from flowdenoising_tpu_torch.ops import cuda as K
+    from flowdenoising_tpu_torch.ops.cuda.sample import displace_sample
+    from flowdenoising_tpu_torch.ops.farneback import prepped_tap_solver, tap_solver
+    from flowdenoising_tpu_torch.ops.warp import bilinear_displace_windowed
+    from flowdenoising_tpu_torch.utils.metrics import psnr, ssim
+    from flowdenoising_tpu_torch.utils.tracing import annotate, device_trace
+
+    clean = blob_volume(size, size, size, seed)
+    noisy = clean + np.random.default_rng(seed + 1).normal(
+        0.0, 40.0, clean.shape).astype(np.float32)
+    vol = torch.from_numpy(noisy).to(dev)
+    taps = get_gaussian_kernels((2.0, 2.0, 2.0))[0]
+    ks2 = len(taps) // 2
+    tag = f"{size}^3, sigma 2, D 8, wrap; {card}"
+
+    def launched(what, fn, want):
+        """fn() with the launch counts set to 0 just before it and read just
+        after: they must be ``want`` (a dict of counts), or (a set) launches
+        of each form in it and of no other."""
+        K.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = nonzero(K.LAUNCHES)
+        ok = got == want if isinstance(want, dict) else set(got) == want
+        require(ok, f"{what}: launched {got}, expected {want}")
+        return out, got
+
+    def same(what, a, b):
+        require(a.shape == b.shape and torch.equal(a, b),
+                f"{what}: not bit for bit (max abs diff "
+                f"{float((a.float() - b.float()).abs().max()):.3g})")
+
+    # of_pass / gaussian_pass of the Z axis against pass 0 of the pipeline
+    fast = dict(tap_mode="compose", symmetric_adjacent=True,
+                dtype="bfloat16", precision="bfloat16")
+    for name, fields in (("solve", {}), ("compose", {"tap_mode": "compose"}),
+                         ("fast", fast)):
+        cfg = FilterConfig(flow=FlowConfig(**fields))
+        first = {}
+        full = denoise(vol, cfg, on_pass=lambda i, v: first.setdefault(i, v))
+        want = nonzero(expected_launches(clean.shape, cfg, passes=(0,)))
+        mine, got = launched(f"of_pass {name}", lambda: of_pass(vol, taps, cfg.flow),
+                             want)
+        same(f"of_pass {name} against denoise's pass 0", mine, first[0])
+        slab = pass_slab(cfg, size, size, size, ks2, device=dev)
+        pass_s = wall_s(lambda: of_pass(vol, taps, cfg.flow))
+        if name == "solve":
+            solved = full
+        print(f"[9 api] of_pass {name} ({tag}): bit for bit denoise's pass 0; "
+              f"launches {got} as expected; pass_slab {slab}; warm of_pass "
+              f"{pass_s:.3f} s", flush=True)
+        del first, full, mine
+    first = {}
+    gaussian_denoise(vol, (2.0, 2.0, 2.0),
+                     on_pass=lambda i, v: first.setdefault(i, v))
+    mine, _ = launched("gaussian_pass", lambda: gaussian_pass(vol, taps), set())
+    same("gaussian_pass against gaussian_denoise's pass 0", mine, first[0])
+    print(f"[9 api] gaussian_pass ({tag}): bit for bit gaussian_denoise's "
+          "pass 0; no kernel launch", flush=True)
+    del first, mine
+
+    # the tap solver under the JAX package's name, on one seeded tap
+    cfg = FlowConfig()
+    padded = pad_stack(vol, ks2, Boundary.WRAP)
+    ours = tap_solver(padded, ks2, size, cfg)
+    prepped = prepped_tap_solver(padded, ks2, size, cfg)
+    seed_flow = ours(ks2 - 1)
+    mine, got = launched("prepped_tap_solver",
+                         lambda: prepped(ks2 - 2, seed_flow), {"umuf"})
+    same("prepped_tap_solver against tap_solver", mine, ours(ks2 - 2, seed_flow))
+    print(f"[9 api] prepped_tap_solver ({tag}): bit for bit tap_solver on the "
+          f"tap at offset -2 seeded by offset -1's flow; launches {got}",
+          flush=True)
+    del padded, ours, prepped
+
+    # sampling: every entry point is K-sample's output
+    flow = mine.contiguous()
+    u, v = flow[:, 0], flow[:, 1]
+    one = {"sample": 1}
+    ref, _ = launched("K-sample", lambda: displace_sample(vol, u, v, 8), one)
+    flow_cl = flow.permute(0, 2, 3, 1)
+    half = (2, size // 2, size, size)
+    for what, fn, want in (
+            ("warp_slices", lambda: warp_slices(vol, flow_cl, 8), ref),
+            ("bilinear_displace_windowed",
+             lambda: bilinear_displace_windowed(vol, u, v, 8), ref),
+            ("warp_slices of one (H, W) plane",
+             lambda: warp_slices(vol[0], flow_cl[0], 8), ref[0]),
+            (f"warp_slices of a {half} stack",
+             lambda: warp_slices(vol.reshape(half), flow_cl.reshape(half + (2,)), 8),
+             ref.reshape(half)),
+            ("warp_slices of NumPy inputs",
+             lambda: warp_slices(noisy, flow_cl.cpu().numpy(), 8), ref)):
+        out, got = launched(what, fn, one)
+        require(out.device == vol.device, f"{what}: computed on {out.device}")
+        same(f"{what} against K-sample", out, want)
+        print(f"[9 api] {what} ({tag}): bit for bit K-sample's output; "
+              f"launches {got}", flush=True)
+    flows = [launched(f"farneback_flow of {kind}",
+                      lambda a=a, b=b: farneback_flow(a, b), {"umuf"})
+             for kind, a, b in (("tensors", vol[1:9], vol[:8]),
+                                ("NumPy inputs", noisy[1:9], noisy[:8]))]
+    same("farneback_flow of NumPy inputs against tensors", flows[1][0], flows[0][0])
+    print(f"[9 api] farneback_flow of NumPy inputs ({tag}, 8 plane pairs): bit "
+          f"for bit the tensors' flow; launches {flows[1][1]}", flush=True)
+    del flow, flow_cl, ref, flows
+
+    # PSNR and SSIM on the card against the NumPy formulas on the host
+    out = solved
+    clean_t = torch.from_numpy(clean).to(dev)
+    host_out = out.cpu().numpy()
+    for name, card_fn, host_fn in (("psnr", psnr, host_psnr),
+                                   ("ssim", ssim, host_ssim)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = card_fn(out, clean_t)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_host = host_fn(host_out, clean)
+        host_s = time.perf_counter() - t0
+        rel = abs(on_card - on_host) / abs(on_host)
+        require(rel <= 1e-9, f"{name}: card {on_card!r} against host "
+                f"{on_host!r} (relative {rel:.3g} > 1e-9)")
+        print(f"[9 api] {name} of the solve denoise against the clean volume "
+              f"({tag}): card {on_card!r} in {card_s:.3f} s; NumPy on the host "
+              f"{on_host!r} in {host_s:.3f} s; relative difference {rel:.3g}",
+              flush=True)
+    del out, solved, clean_t
+
+    # a device trace of a warm solve denoise, with an annotated range
+    cfg = FilterConfig()
+    denoise(vol, cfg)
+    plain_s = wall_s(lambda: denoise(vol, cfg))
+    with tempfile.TemporaryDirectory() as tdir:
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with device_trace(tdir) as state:
+            with annotate("api_phase"):
+                denoise(vol, cfg)
+                torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        files = os.listdir(tdir)
+        require(files == [os.path.basename(state["path"])],
+                f"device_trace wrote {files}")
+        nbytes = os.path.getsize(state["path"])
+        with open(state["path"]) as f:
+            events = json.load(f)["traceEvents"]
+    fams = Counter(kernel_family(e.get("name", "")) for e in events
+                   if e.get("cat") == "kernel")
+    want = expected_launches(clean.shape, cfg)
+    for family, form in (("K-umuf", "umuf"), ("K-sample", "sample")):
+        require(fams[family] == want[form] == launches[form],
+                f"device_trace: {fams[family]} {family} kernel events, "
+                f"{launches[form]} launches counted, {want[form]} expected")
+    others = {f: n for f, n in fams.items() if f.startswith("K-")
+              and f not in ("K-umuf", "K-sample")}
+    require(not others, f"device_trace: other kernels in the trace: {others}")
+    marks = [e for e in events if e.get("name") == "api_phase"]
+    require(marks, "device_trace: the annotate range is not in the trace")
+    print(f"[9 api] device_trace of a warm solve denoise ({tag}): trace "
+          f"{nbytes} B, {fams['K-umuf']} K-umuf and {fams['K-sample']} K-sample "
+          f"kernel events = the launches counted and expected; annotate range "
+          f"in it ({len(marks)} events: "
+          f"{sorted({e.get('cat') for e in marks})}); wall {plain_s:.3f} s "
+          f"without the trace, {traced_s:.3f} s with it (export included)",
+          flush=True)
 
 
 def host_rss() -> int | None:
@@ -2053,6 +2295,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts, outputs = phase_main(dev, args.size, args.seed)
     phase_e2e(dev, args.seed)
+    torch.cuda.empty_cache()
+    phase_api(dev, args.size, args.seed, card)
     torch.cuda.empty_cache()
     phase_stream(dev, (args.size,) * 3, args.seed, outputs)
     torch.cuda.empty_cache()

@@ -17,7 +17,8 @@ CUDA for an array unless ``device="cpu"`` is passed:
   K-um and K-uf (the two halves of an iteration, for the ``-v 2`` report)
   under ``ops.cuda`` and their plain PyTorch versions beside them;
 - ``flowdenoising_tpu_torch.utils`` -- pass-boundary checkpoints, the
-  ``-v 2`` stage reports, logging and progress;
+  ``-v 2`` stage reports, PSNR/SSIM (``metrics``), device traces
+  (``tracing``), logging and progress;
 - ``flowdenoising_tpu_torch.io``    -- MRC2014 and TIFF volume I/O;
 - ``flowdenoising_tpu_torch.cli``   -- the reference-compatible CLI.
 """
@@ -30,6 +31,9 @@ from flowdenoising_tpu_torch.ops.warp import warp_slices
 from flowdenoising_tpu_torch.ops.farneback import farneback_flow
 from flowdenoising_tpu_torch.core.pipeline import (
     denoise, denoise_many, gaussian_denoise)
+from flowdenoising_tpu_torch.core.autodisp import resolve_auto_displacement
+from flowdenoising_tpu_torch.core.noise import (
+    estimate_noise, resolve_auto_presmooth)
 
 __all__ = [
     "__version__",
@@ -43,4 +47,7 @@ __all__ = [
     "denoise",
     "denoise_many",
     "gaussian_denoise",
+    "resolve_auto_displacement",
+    "estimate_noise",
+    "resolve_auto_presmooth",
 ]

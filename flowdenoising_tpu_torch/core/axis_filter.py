@@ -1,6 +1,9 @@
 """Per-axis filtering passes along axis 0 of a (N, H, W) stack.
 
-Counterpart of ``flowdenoising_tpu/core/axis_filter.py``:
+Counterpart of ``flowdenoising_tpu/core/axis_filter.py``.  ``gaussian_pass``
+and ``of_pass`` pad a (N, H, W) stack (``pad_stack``) and run the pass over
+it, on the stack's device (an array goes to ``device``); the pipeline pads
+and calls the ``*_padded`` passes itself:
 
 - ``gaussian_pass_padded``: plain Gaussian correlation along the axis (the
   ``-n`` path).
@@ -50,10 +53,11 @@ import torch
 from flowdenoising_tpu_torch.config import Boundary, FlowConfig
 from flowdenoising_tpu_torch.ops.blur import gaussian_blur, rounded
 from flowdenoising_tpu_torch.ops.cuda.compose import compose_run
+from flowdenoising_tpu_torch.ops.cuda.sample import displace_sample
+from flowdenoising_tpu_torch.ops.device import as_tensors
 from flowdenoising_tpu_torch.ops.farneback import (
     SOLVE_RANGE, flow_from_pyramids, polyexp_pyramid, split_route, tap_solver)
-from flowdenoising_tpu_torch.ops.warp import (
-    WARP_RANGE, displace_sample, displace_sample_xla)
+from flowdenoising_tpu_torch.ops.warp import WARP_RANGE, displace_sample_xla
 
 
 def pad_stack(vol: torch.Tensor, pad: int, boundary: Boundary,
@@ -92,6 +96,16 @@ def gaussian_pass_padded(padded: torch.Tensor, taps: np.ndarray) -> torch.Tensor
         term = padded[k:k + n] * float(np.float32(taps[k]))
         out = term if out is None else out.add_(term)
     return out
+
+
+def gaussian_pass(vol, taps: np.ndarray, boundary: Boundary = Boundary.WRAP,
+                  mean_val=None, device="cuda") -> torch.Tensor:
+    """Gaussian correlation along axis 0 of (N, H, W), in float32: the
+    stack padded by ``boundary`` (MEAN: with ``mean_val``, default the
+    stack's mean), then ``gaussian_pass_padded``."""
+    vol, = as_tensors(vol, device=device)
+    padded = pad_stack(vol.float(), len(taps) // 2, boundary, mean_val)
+    return gaussian_pass_padded(padded, taps)
 
 
 def _estimation_stack(padded: torch.Tensor,
@@ -233,3 +247,18 @@ def _compose_chain(padded: torch.Tensor, taps: np.ndarray,
                                          flow[:, 1])
             acc.add_((warped * rounded(taps[ks2 + sign * j], dtype)).to(dtype))
     return acc.float()
+
+
+def of_pass(vol, taps: np.ndarray, flow_cfg: FlowConfig,
+            boundary: Boundary = Boundary.WRAP, mean_val=None,
+            device="cuda") -> torch.Tensor:
+    """OF-compensated Gaussian pass along axis 0 of (N, H, W): the stack
+    taken to ``flow_cfg.dtype``, padded by ``boundary`` (MEAN: with
+    ``mean_val``, default the mean of the cast stack), then
+    ``of_pass_padded``.  The cast comes before the pad, as in the JAX
+    package; the pipeline pads its float32 volume first, which gives the
+    same stack for WRAP and REPLICATE.  Returns float32."""
+    vol, = as_tensors(vol, device=device)
+    padded = pad_stack(vol.to(getattr(torch, flow_cfg.dtype)), len(taps) // 2,
+                       boundary, mean_val)
+    return of_pass_padded(padded, taps, flow_cfg)

@@ -34,11 +34,12 @@ import concurrent.futures
 import numpy as np
 import torch
 
-from flowdenoising_tpu_torch.config import Boundary, FilterConfig
+from flowdenoising_tpu_torch.config import Boundary, FilterConfig, FlowConfig
 from flowdenoising_tpu_torch.core import memory
 from flowdenoising_tpu_torch.core.axis_filter import (
     gaussian_pass_padded, of_pass_padded, pad_stack)
 from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
+from flowdenoising_tpu_torch.ops.device import as_tensors, require_device
 
 # Canonical axes of each pass's layout, in Z, Y, X pass order.
 _PASS_LAYOUTS = [(0, 1, 2), (1, 0, 2), (2, 0, 1)]
@@ -86,14 +87,18 @@ def _as_volume(vol, device="cuda") -> torch.Tensor:
     """``vol`` as a float32 tensor: a tensor stays on its own device, any
     other input goes to ``device``.  Raises when that is a CUDA device and
     none is available -- never a silent fall back to the CPU."""
-    if isinstance(vol, torch.Tensor):
-        return vol.to(torch.float32)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device}: no CUDA device is available "
-                           "(pass device=\"cpu\" to run the plain PyTorch "
-                           "versions on the CPU)")
-    return torch.as_tensor(np.asarray(vol), dtype=torch.float32, device=device)
+    vol, = as_tensors(vol, device=device)
+    return vol.to(torch.float32)
+
+
+def pass_slab(cfg: FilterConfig, n: int, h: int, w: int, ks2: int,
+              device="cuda") -> int | None:
+    """Output planes a window of one pass holds on ``device`` (None: the
+    whole axis), as ``denoise`` sizes them: ``core/memory.py``'s model
+    against the memory the device has free (``memory.device_budget``).
+    ``cfg.slab_size`` when set; the whole axis on the CPU."""
+    budget = memory.device_budget(require_device(device))
+    return memory.pass_slab(cfg, n, h, w, ks2, budget)
 
 
 def _mean(vol, boundary: Boundary, mean_val):
@@ -156,7 +161,7 @@ def gaussian_denoise(vol, sigma=(2.0, 2.0, 2.0),
 
 def denoise(vol, cfg: FilterConfig = FilterConfig(), kernels=None,
             start_pass: int = 0, mean_val=None, on_pass=None,
-            device="cuda") -> torch.Tensor:
+            owned: bool = False, device="cuda") -> torch.Tensor:
     """Full OF-compensated denoise: Z, Y, X passes of Farneback-compensated
     Gaussian accumulation (or the plain Gaussian when cfg.use_flow is
     False).
@@ -177,6 +182,8 @@ def denoise(vol, cfg: FilterConfig = FilterConfig(), kernels=None,
     ORIGINAL input's mean (the reference's sequential pipeline pads every
     pass with the input mean); ``start_pass >= 3`` returns the volume and
     launches nothing.  ``on_pass(i, volume)`` is called after pass i.
+    ``owned`` is the JAX package's leave to donate the caller's buffer; the
+    port neither donates nor writes it, so it changes nothing here.
     """
     if not cfg.use_flow:
         return gaussian_denoise(vol, cfg.sigma, cfg.boundary, cfg.slab_size,
@@ -238,13 +245,9 @@ def denoise_many(vols, cfg: FilterConfig = FilterConfig(), kernels=None,
     the window.  Raises without CUDA unless ``device="cpu"``; an error of
     the staging thread is raised here.
     """
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device}: no CUDA device is available "
-                               "(pass device=\"cpu\" to run on the CPU)")
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
+    device = require_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     window = max(1, int(window))
     kernels = get_gaussian_kernels(cfg.sigma) if kernels is None else kernels
     cuda = device.type == "cuda"
@@ -309,5 +312,5 @@ def denoise_many(vols, cfg: FilterConfig = FilterConfig(), kernels=None,
     return outs
 
 
-__all__ = ["denoise", "denoise_many", "gaussian_denoise", "volume_mean",
-           "slabbed_padded_pass"]
+__all__ = ["FlowConfig", "denoise", "denoise_many", "gaussian_denoise",
+           "pass_slab", "volume_mean", "slabbed_padded_pass"]

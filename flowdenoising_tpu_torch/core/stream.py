@@ -54,6 +54,7 @@ from flowdenoising_tpu_torch.core.axis_filter import (
     gaussian_pass_padded, of_pass_padded)
 from flowdenoising_tpu_torch.core.pipeline import _PASS_LAYOUTS, volume_mean
 from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
+from flowdenoising_tpu_torch.ops.device import require_device
 from flowdenoising_tpu_torch.parallel.mesh import make_mesh, sharded_window_pass
 
 
@@ -208,10 +209,7 @@ def denoise_streamed(src, cfg: FilterConfig = FilterConfig(), kernels=None, *,
     if mesh is None and n_devices is not None and n_devices > 1:
         mesh = make_mesh(n_devices, device=device)
     n_dev = 1 if mesh is None else len(mesh)
-    device = torch.device(device if mesh is None else mesh[0])
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device}: no CUDA device is available "
-                           "(pass device=\"cpu\" to run on the CPU)")
+    device = require_device(device if mesh is None else mesh[0])
     kernels = get_gaussian_kernels(cfg.sigma) if kernels is None else kernels
     mean_val = volume_mean(src) if cfg.boundary is Boundary.MEAN else None
 

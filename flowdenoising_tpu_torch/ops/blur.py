@@ -16,6 +16,8 @@ import functools
 import numpy as np
 import torch
 
+from flowdenoising_tpu_torch.ops.device import as_tensors
+
 # OpenCV getGaussianKernel fixed taps for sigma<=0 and ksize in {1,3,5,7}.
 _SMALL_GAUSSIAN_TAB = {
     1: np.array([1.0]),
@@ -101,3 +103,13 @@ def box_blur_sum(img: torch.Tensor, winsize: int) -> torch.Tensor:
     m = winsize // 2
     taps = np.ones(2 * m + 1, dtype=np.float64)
     return _sep_correlate(img, taps, taps, "edge")
+
+
+def box_blur(img, winsize: int, device="cuda") -> torch.Tensor:
+    """Box mean with OpenCV Farneback's 1/winsize**2 normalization:
+    ``box_blur_sum`` in img's dtype (a bfloat16 image sums in bf16), then
+    scaled by 1/winsize**2 rounded to that dtype.  An input that is not a
+    tensor goes to ``device`` as float32."""
+    img, = as_tensors(img, device=device)
+    return box_blur_sum(img, winsize) * rounded(1.0 / float(winsize * winsize),
+                                                img.dtype)

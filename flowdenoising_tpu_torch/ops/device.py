@@ -1,0 +1,34 @@
+"""Where an entry point computes: a tensor on its own device, anything else
+on the device the caller names (CUDA unless the caller asks for the CPU)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises for a CUDA device when none
+    is available -- never a silent fall back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: no CUDA device is available "
+                           "(pass device=\"cpu\" to run the plain PyTorch "
+                           "versions on the CPU)")
+    return device
+
+
+def as_tensors(*xs, device="cuda", dtype=torch.float32) -> tuple:
+    """The inputs as tensors on one device.  Tensors stay as they are; every
+    other input (a NumPy array, a list, a scalar) becomes a ``dtype`` tensor
+    on the device of the first tensor among the inputs, or on ``device``
+    when there is none.  None stays None."""
+    target = next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
+    out = []
+    for x in xs:
+        if x is not None and not isinstance(x, torch.Tensor):
+            if target is None:
+                target = require_device(device)
+            x = torch.as_tensor(np.asarray(x), dtype=dtype, device=target)
+        out.append(x)
+    return tuple(out)

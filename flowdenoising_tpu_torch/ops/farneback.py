@@ -48,6 +48,7 @@ The bf16 fast mode, as the JAX package runs it on the TPU:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -60,15 +61,16 @@ from flowdenoising_tpu_torch.ops.cuda.uf import update_flow
 from flowdenoising_tpu_torch.ops.cuda.um import update_matrices
 from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
 from flowdenoising_tpu_torch.ops.cuda.umuf_split import umuf_split_iterate
+from flowdenoising_tpu_torch.ops.device import as_tensors
 from flowdenoising_tpu_torch.ops.resize import (
-    pyramid_sizes, resize_area, resize_linear)
+    _full_float32, pyramid_sizes, resize_area, resize_linear)
 from flowdenoising_tpu_torch.ops.warp import (
     displace_sample_plain, displace_sample_xla)
 
 __all__ = ["EXPANSION_RANGE", "SOLVE_RANGE", "farneback_flow",
-           "flow_from_pyramids", "image_pyramid", "poly_exp_constants",
-           "poly_expand",
-           "polyexp_pyramid", "smoothed_level_image", "split_iterate",
+           "flow_from_pyramids", "image_pyramid", "matmul_precision",
+           "poly_exp_constants", "poly_expand", "polyexp_pyramid",
+           "prepped_tap_solver", "smoothed_level_image", "split_iterate",
            "split_iterate_plain", "split_route", "tap_solver", "umuf_iterate",
            "umuf_iterate_plain", "update_flow", "update_flow_plain",
            "update_matrices", "update_matrices_plain", "update_matrices_xla"]
@@ -111,8 +113,11 @@ def poly_exp_constants(n: int, sigma: float):
     return g, xg, xxg, float(invG[1, 1]), float(invG[0, 3]), float(invG[3, 3]), float(invG[5, 5])
 
 
-def poly_expand(img: torch.Tensor, n: int = 5, sigma: float = 1.2) -> torch.Tensor:
-    """Quadratic polynomial expansion of (..., H, W) -> (..., 5, H, W).
+def poly_expand(img: torch.Tensor, n: int = 5, sigma: float = 1.2,
+                channel_first: bool = False) -> torch.Tensor:
+    """Quadratic polynomial expansion of (..., H, W) -> (..., H, W, 5), as
+    the JAX package's, or (..., 5, H, W) with ``channel_first``, the layout
+    of the kernels and of everything in the port that calls it.
 
     Channels: [b_y, b_x, a_yy, a_xx, a_xy] in OpenCV's internal scaling.
     Border handling: replicate, both axes.  Computed in img's dtype, the
@@ -139,7 +144,7 @@ def poly_expand(img: torch.Tensor, n: int = 5, sigma: float = 1.2) -> torch.Tens
         b1 * ig03 + b5 * ig33,
         b1 * ig03 + b4 * ig33,
         b6 * ig55,
-    ], dim=-3)
+    ], dim=-3 if channel_first else -1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -426,7 +431,8 @@ def polyexp_pyramid(img: torch.Tensor, cfg: FlowConfig) -> list[torch.Tensor]:
     """Per-level expansions (..., 5, h_k, w_k) of (..., H, W) images, in
     the profiler range ``EXPANSION_RANGE``."""
     with torch.profiler.record_function(EXPANSION_RANGE):
-        return [poly_expand(i, cfg.poly_n, cfg.poly_sigma).contiguous()
+        return [poly_expand(i, cfg.poly_n, cfg.poly_sigma,
+                            channel_first=True).contiguous()
                 for i in image_pyramid(img, cfg)]
 
 
@@ -471,24 +477,50 @@ def tap_solver(padded: torch.Tensor, interior_start: int, n: int,
     levels = [_level_operands(cfg, k, r[interior_start:interior_start + n], r)
               for k, r in enumerate(polyexp_pyramid(padded, cfg))]
 
-    def solve(start: int, init_flow: torch.Tensor | None = None):
+    def solve(start: int, init_flow_cf: torch.Tensor | None = None):
         return _solve_levels([(r0, r1[start:start + n], ramp)
                               for r0, r1, ramp in levels],
-                             cfg, init_flow, round_level_flow=False)
+                             cfg, init_flow_cf, round_level_flow=False)
 
     return solve
 
 
-def farneback_flow(reference: torch.Tensor, target: torch.Tensor,
-                   cfg: FlowConfig = FlowConfig(),
-                   initial_flow: torch.Tensor | None = None) -> torch.Tensor:
+def prepped_tap_solver(padded: torch.Tensor, interior_start: int, n: int,
+                       cfg: FlowConfig, interpret: bool = False):
+    """The JAX package's name and signature for ``tap_solver``: returns
+    ``solve(start, init_flow_cf=None)`` -> (n, 2, H, W) float32, channel 0
+    the x displacement.  ``interpret`` (the JAX package runs its Pallas
+    kernels in interpret mode with it) has no effect: the device of
+    ``padded`` chooses between the kernels (CUDA) and their plain versions
+    (CPU)."""
+    return tap_solver(padded, interior_start, n, cfg)
+
+
+def matmul_precision(cfg: FlowConfig):
+    """Context manager, the counterpart of the JAX package's: for
+    ``cfg.precision`` "bfloat16" it leaves the matrix-product settings as
+    they are; for any other value it pins IEEE float32 products inside the
+    block and restores the caller's settings on exit.  The port's own
+    paths pin their precision already (``ops.resize``), so it changes none
+    of their outputs."""
+    if cfg.precision == "bfloat16":
+        return contextlib.nullcontext()
+    return _full_float32()
+
+
+def farneback_flow(reference, target, cfg: FlowConfig = FlowConfig(),
+                   initial_flow=None, device="cuda") -> torch.Tensor:
     """Dense optical flow from ``target`` to ``reference`` (cv2 order of the
     reference wrapper: prev=target, next=reference).
 
     reference, target: (..., H, W) images, taken to ``cfg.dtype``.
     initial_flow and the result: (..., H, W, 2) float32, channel 0 = x
     displacement, such that ``warp_slices(reference, flow) ~ target``.
+    Computed on the device of a tensor input; inputs that are not tensors
+    go there, or to ``device`` when none is a tensor.
     """
+    reference, target, initial_flow = as_tensors(
+        reference, target, initial_flow, device=device)
     lead = target.shape[:-2]
     h, w = target.shape[-2], target.shape[-1]
     dtype = getattr(torch, cfg.dtype)

@@ -6,6 +6,13 @@ displacement bound D the flow is clamped to +-D first.  The JAX package
 evaluates that bound as a static window of shifted reads, a device for the
 TPU; on |u|, |v| <= D it is the same function as the clamped gather here.
 
+``warp_slices``, ``displace_sample`` and ``bilinear_displace_windowed``
+take any leading dimensions, broadcast as in the JAX package, and fold
+them into the (B, [C,] H, W) shapes of K-sample (the wrapper
+``ops.cuda.sample.displace_sample``), which runs on a CUDA tensor; a CPU
+tensor takes its plain version, ``displace_sample_plain``.  An input that
+is not a tensor goes to ``device``.
+
 With no bound in a bfloat16 pass the JAX package samples with its exact
 gather in bf16 arithmetic, coordinates included (``displace_sample_xla``);
 it has no kernel there, and neither has the port.
@@ -13,12 +20,16 @@ it has no kernel there, and neither has the port.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from flowdenoising_tpu_torch.ops.cuda.sample import displace_sample
+from flowdenoising_tpu_torch.ops.cuda import sample as _k_sample
+from flowdenoising_tpu_torch.ops.device import as_tensors
 
-__all__ = ["WARP_RANGE", "bilinear_sample", "displace_sample",
-           "displace_sample_plain", "displace_sample_xla", "warp_slices"]
+__all__ = ["WARP_RANGE", "bilinear_displace_windowed", "bilinear_sample",
+           "displace_sample", "displace_sample_plain", "displace_sample_xla",
+           "warp_slices"]
 
 # The torch.profiler range around the split route's tap warps (plain
 # PyTorch), by which the -v 2 measured report finds their kernels.
@@ -99,9 +110,85 @@ def displace_sample_xla(src: torch.Tensor, u: torch.Tensor,
     return bilinear_sample(src, u + gx, v + gy)
 
 
-def warp_slices(ref: torch.Tensor, flow: torch.Tensor,
-                max_displacement: int | None = None) -> torch.Tensor:
-    """Warp ``ref`` (B, H, W) by ``flow`` (B, H, W, 2), the JAX package's
-    layout: channel 0 is the x displacement, channel 1 the y displacement."""
-    return displace_sample(ref, flow[..., 0].contiguous(),
-                           flow[..., 1].contiguous(), max_displacement)
+def _lead(t: torch.Tensor, nd: int) -> tuple:
+    """``t``'s leading dims (all but the last two), padded with 1s to
+    ``nd``."""
+    return (1,) * (nd - t.ndim + 2) + tuple(t.shape[:-2])
+
+
+def _sample(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+            max_displacement: int | None) -> torch.Tensor:
+    """K-sample of ``img`` (..., H, W) at displacements u, v (..., H, W),
+    all leading dims broadcast against each other.
+
+    The trailing leading dims along which u and v are both broadcast become
+    K-sample's C (one flow for C planes), the rest its B.  Nothing is copied
+    that K-sample can read in place: img when it already has the broadcast
+    shape and is contiguous, u and v when they are (H, W) planes at one
+    batch stride (a broadcast batch has stride 0, a channels-last flow's
+    channel is copied).
+    """
+    h, w = img.shape[-2:]
+    batch = torch.broadcast_shapes(img.shape[:-2], u.shape[:-2],
+                                   v.shape[:-2])
+    nd = len(batch)
+    ub, vb = _lead(u, nd), _lead(v, nd)
+    k = nd
+    while k and ub[k - 1] == 1 and vb[k - 1] == 1:
+        k -= 1
+    outer, inner = tuple(batch[:k]), tuple(batch[k:])
+    b, c = math.prod(outer), math.prod(inner)
+    if b * c * h * w == 0:
+        return img.new_empty(batch + (h, w))
+    src = img.expand(batch + (h, w)).reshape(
+        (b, c, h, w) if inner else (b, h, w)).contiguous()
+    uu = u.reshape(ub[:k] + (h, w)).expand(outer + (h, w)).reshape(b, h, w)
+    vv = v.reshape(vb[:k] + (h, w)).expand(outer + (h, w)).reshape(b, h, w)
+    if uu.stride() != vv.stride() or uu.stride()[1:] != (w, 1):
+        uu, vv = uu.contiguous(), vv.contiguous()
+    out = _k_sample.displace_sample(src, uu, vv, max_displacement)
+    return out.reshape(batch + (h, w))
+
+
+def bilinear_displace_windowed(img, u, v, max_displacement: int,
+                               device="cuda") -> torch.Tensor:
+    """Bilinear sampling of ``img`` (..., H, W) at displacements (u, v)
+    (..., H, W) clamped into [-D, D], replicate borders; leading dims of
+    img broadcast against u and v.
+
+    The JAX package evaluates this as a static window of shifted reads (no
+    gathers on the TPU); it is the clamped gather, and here K-sample, on a
+    CUDA tensor.
+    """
+    img, u, v = as_tensors(img, u, v, device=device)
+    return _sample(img, u, v, int(max_displacement))
+
+
+def displace_sample(src, u, v, max_displacement: int | None,
+                    sampler: str = "auto", device="cuda") -> torch.Tensor:
+    """Sample ``src`` at per-pixel displacements (u, v): src is (..., H, W),
+    or (..., C, H, W) with u, v (..., H, W) shared across C; u, v are
+    clamped to +-max_displacement (None: no clamp).
+
+    ``sampler`` is the JAX package's choice among its TPU forms ("auto",
+    "pallas", "pallas_xwin", "windowed"), which give the same function
+    wherever |u|, |v| <= D.  Here every value is that function: K-sample on
+    a CUDA tensor, its plain version on a CPU tensor; none selects the
+    plain version on the card.
+    """
+    src, u, v = as_tensors(src, u, v, device=device)
+    if src.ndim == u.ndim + 1:
+        u, v = u.unsqueeze(-3), v.unsqueeze(-3)
+    return _sample(src, u, v, max_displacement)
+
+
+def warp_slices(ref, flow, max_displacement: int | None = None,
+                sampler: str = "auto", device="cuda") -> torch.Tensor:
+    """Warp ``ref`` (..., H, W) by ``flow`` (..., H, W, 2), the JAX
+    package's layout: channel 0 is the x displacement, channel 1 the y
+    displacement.  ``max_displacement`` clamps the flow (None: no clamp);
+    ``sampler`` as in ``displace_sample``.  Computed on the device of a
+    tensor input, else on ``device``."""
+    ref, flow = as_tensors(ref, flow, device=device)
+    return displace_sample(ref, flow[..., 0], flow[..., 1], max_displacement,
+                           sampler)

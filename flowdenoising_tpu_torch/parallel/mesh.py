@@ -44,6 +44,7 @@ from flowdenoising_tpu_torch.core.axis_filter import (
 from flowdenoising_tpu_torch.core.pipeline import (
     _PASS_LAYOUTS, _as_volume, _mean, slabbed_padded_pass)
 from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
+from flowdenoising_tpu_torch.ops.device import require_device
 from flowdenoising_tpu_torch.parallel.ingest import local_z_range
 
 
@@ -55,11 +56,8 @@ def make_mesh(n_devices: int | None = None, devices=None,
     ``device="cpu"`` ``n_devices`` shards of the CPU.  Raises for CUDA when
     there is none."""
     if devices is None:
-        device = torch.device(device)
+        device = require_device(device)
         if device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("make_mesh: no CUDA device is available "
-                                   "(pass device=\"cpu\" for a CPU mesh)")
             devices = [torch.device("cuda", i)
                        for i in range(torch.cuda.device_count())]
         else:

@@ -112,10 +112,12 @@ def device_stage_report(vol_shape: tuple[int, int, int], cfg: FilterConfig,
             img = tensor(rng.normal(size=(b, hk, wk)))
             d = _level_displacement(fcfg, k)
             t_pe = timed(
-                lambda x: poly_expand(x, fcfg.poly_n, fcfg.poly_sigma)[:, 0] + x,
+                lambda x: poly_expand(x, fcfg.poly_n, fcfg.poly_sigma,
+                                      channel_first=True)[:, 0] + x,
                 img)
             totals["OFE_expansion"] += t_pe * scale
-            r0 = poly_expand(img, fcfg.poly_n, fcfg.poly_sigma).contiguous()
+            r0 = poly_expand(img, fcfg.poly_n, fcfg.poly_sigma,
+                             channel_first=True).contiguous()
             r1 = r0 + 0.01
             if fcfg.precision == "bfloat16" and d is not None:
                 r1 = r1.to(torch.bfloat16)

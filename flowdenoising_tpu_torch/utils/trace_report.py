@@ -50,12 +50,13 @@ _COPY_CATS = ("gpu_memcpy", "gpu_memset")
 
 
 @contextlib.contextmanager
-def traced_run(export_phase=contextlib.nullcontext):
+def traced_run(export_phase=contextlib.nullcontext, log_dir=None):
     """Profile the enclosed block (CPU ops, and CUDA kernels where there is
     a card); yields a dict that receives ``{"path": <Chrome trace>}`` once
     the block ends.  Stopping the profiler and writing the trace run inside
     ``export_phase()`` (the CLI times them as its ``trace_export`` phase,
-    apart from the block).  The caller removes the file."""
+    apart from the block).  The trace is a new file in ``log_dir`` (None:
+    the system's temporary directory), which the caller removes."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -71,7 +72,8 @@ def traced_run(export_phase=contextlib.nullcontext):
         raise
     with export_phase():
         prof.stop()
-        fd, path = tempfile.mkstemp(prefix="fdt_trace_", suffix=".json")
+        fd, path = tempfile.mkstemp(prefix="fdt_trace_", suffix=".json",
+                                    dir=log_dir)
         os.close(fd)
         prof.export_chrome_trace(path)
     state["path"] = path

@@ -30,7 +30,8 @@ from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf, umuf_iterate
 from flowdenoising_tpu_torch.ops.cuda.umuf_split import (
     plan_split, umuf_split_iterate)
 from flowdenoising_tpu_torch.ops.resize import resize_area, resize_linear
-from flowdenoising_tpu_torch.ops.warp import displace_sample, displace_sample_plain
+from flowdenoising_tpu_torch.ops.cuda.sample import displace_sample
+from flowdenoising_tpu_torch.ops.warp import displace_sample_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -74,7 +75,8 @@ def test_sample_kernel_matches_plain(dev, b, c, h, w, d):
 ])
 def test_umuf_kernel_matches_plain(dev, b, h, w, winsize, d, per_launch):
     r = np.random.default_rng(h * w + winsize)
-    rr = F.poly_expand(_t(r.normal(size=(2, b, h, w)) * 40, dev)).contiguous()
+    rr = F.poly_expand(_t(r.normal(size=(2, b, h, w)) * 40, dev),
+                       channel_first=True).contiguous()
     flow = _t(r.normal(size=(b, 2, h, w)) * 2, dev)
     plan = plan_umuf(h, w, winsize, 3, per_launch)
     assert plan.smem == load_library().fdt_umuf_smem(
@@ -101,7 +103,7 @@ def test_umuf_split_kernel_matches_plain(dev, b, h, w, winsize, per_launch,
     # takes one block an SM (plan_split)
     r = np.random.default_rng(h * w + winsize)
     imgs = _t(r.normal(size=(2, b, h, w)) * 40, dev).to(torch.bfloat16)
-    rr = F.poly_expand(imgs).contiguous()
+    rr = F.poly_expand(imgs, channel_first=True).contiguous()
     flow = r.normal(size=(b, 2, h, w)) * 2
     flow[:, 0, : h // 4] += 40
     flow[:, 1, :, : w // 3] -= 40
@@ -125,7 +127,8 @@ def test_umuf_split_kernel_matches_plain(dev, b, h, w, winsize, per_launch,
 ])
 def test_um_kernel_matches_plain(dev, b, h, w, d, scale):
     r = np.random.default_rng(h * w + b)
-    rr = F.poly_expand(_t(r.normal(size=(2, b, h, w)) * 40, dev)).contiguous()
+    rr = F.poly_expand(_t(r.normal(size=(2, b, h, w)) * 40, dev),
+                       channel_first=True).contiguous()
     flow = r.normal(size=(b, 2, h, w)) * scale
     flow[:, 0, : h // 4] += 3 * (d or 8)
     flow = _t(flow, dev)
@@ -188,7 +191,8 @@ def test_umuf_bf16_kernel_matches_plain(dev, b, h, w, winsize, d, ramp_bf16):
     # K-umuf-bf16: r1 in bfloat16, counted apart from the float32 form, on
     # the float32 form's plan, whose shared memory is the planner's formula
     r = np.random.default_rng(h * w + winsize + 1)
-    rr = F.poly_expand(_t(r.normal(size=(2, b, h, w)) * 40, dev)).contiguous()
+    rr = F.poly_expand(_t(r.normal(size=(2, b, h, w)) * 40, dev),
+                       channel_first=True).contiguous()
     r1 = rr[1].to(torch.bfloat16)
     flow = r.normal(size=(b, 2, h, w)) * 2
     flow[:, 0, : h // 4] += 2 * d + 3          # a band beyond +-d
@@ -209,7 +213,8 @@ def test_umuf_bf16_kernel_matches_plain(dev, b, h, w, winsize, d, ramp_bf16):
                                      (8, 256, 256, 9)])
 def test_um_bf16_kernel_matches_plain(dev, b, h, w, d):
     r = np.random.default_rng(h * w + b + 1)
-    rr = F.poly_expand(_t(r.normal(size=(2, b, h, w)) * 40, dev)).contiguous()
+    rr = F.poly_expand(_t(r.normal(size=(2, b, h, w)) * 40, dev),
+                       channel_first=True).contiguous()
     r1 = rr[1].to(torch.bfloat16)
     flow = r.normal(size=(b, 2, h, w)) * 1.5
     flow[:, 0, : h // 4] += 3 * (d or 8)

@@ -82,8 +82,14 @@ def test_box_blur_sum(winsize):
 
 def test_poly_expand_channel_first():
     img = _images((3, 20, 28), seed=3)
-    _close(TF.poly_expand(torch.from_numpy(img)),
+    _close(TF.poly_expand(torch.from_numpy(img), channel_first=True),
            JF.poly_expand(jnp.asarray(img), channel_first=True))
+
+
+def test_poly_expand_default_channels_last():
+    img = _images((3, 20, 28), seed=3)
+    _close(TF.poly_expand(torch.from_numpy(img)),
+           JF.poly_expand(jnp.asarray(img)))
 
 
 def test_image_and_polyexp_pyramid():

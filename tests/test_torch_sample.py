@@ -17,7 +17,8 @@ from flowdenoising_tpu.ops.warp import (
     bilinear_displace_windowed, bilinear_sample as j_bilinear_sample)
 
 from flowdenoising_tpu_torch.ops import cuda as K
-from flowdenoising_tpu_torch.ops.warp import displace_sample, warp_slices
+from flowdenoising_tpu_torch.ops.cuda.sample import displace_sample
+from flowdenoising_tpu_torch.ops.warp import warp_slices
 
 torch.set_num_threads(1)
 

@@ -154,7 +154,7 @@ def _tiled_emulation(r0, r1, flow, iters, d, winsize, tile_y, tile_x, k,
 def _cf_setup(b, h, w, seed, band=5.0):
     r = np.random.default_rng(seed)
     imgs = torch.from_numpy((r.normal(size=(2, b, h, w)) * 40).astype(np.float32))
-    rr = F.poly_expand(imgs).contiguous()
+    rr = F.poly_expand(imgs, channel_first=True).contiguous()
     flow = torch.from_numpy((r.normal(size=(b, 2, h, w)) * 2).astype(np.float32))
     flow[:, 0, : h // 4] += band         # a band beyond the bound (d = 2 by default)
     return rr[0], rr[1], flow
@@ -340,7 +340,7 @@ def _split_setup(b, h, w, seed, flow_dtype):
     right and top edges, in ``flow_dtype``."""
     r = np.random.default_rng(seed)
     imgs = torch.from_numpy((r.normal(size=(2, b, h, w)) * 40).astype(np.float32))
-    rr = F.poly_expand(imgs.to(torch.bfloat16)).contiguous()
+    rr = F.poly_expand(imgs.to(torch.bfloat16), channel_first=True).contiguous()
     flow = torch.from_numpy((r.normal(size=(b, 2, h, w)) * 2).astype(np.float32))
     flow[:, 0, : h // 4] += 40.0
     flow[:, 1, :, : w // 3] -= 40.0
