@@ -1,0 +1,15 @@
+"""compose.roofline_pct: the least time the card could take for the compose pass
+layer's work (``benchmarks/work.py: compose``, counted from the volume's
+shape) over its device ms a volume, %; nothing where the layer ran no
+operation."""
+
+from benchmarks import work
+
+
+def read(trace):
+    ms = trace.layer_ms("compose pass")
+    if not ms:
+        return None
+    cell = trace.cell
+    least = work.compose(cell.shape, cell.config["sigma"], cell.flow).least_ms
+    return 100.0 * least / ms

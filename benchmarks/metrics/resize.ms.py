@@ -1,0 +1,6 @@
+"""resize.ms: device ms a volume in the resize layer (``benchmarks/trace.py``'s
+rule); nothing where the layer ran no operation."""
+
+
+def read(trace):
+    return trace.layer_ms("resize")

@@ -1,0 +1,6 @@
+"""tap_warp.ms: device ms a volume in the tap warp layer (``benchmarks/trace.py``'s
+rule); nothing where the layer ran no operation."""
+
+
+def read(trace):
+    return trace.layer_ms("tap warp")

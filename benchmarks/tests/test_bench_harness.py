@@ -1,0 +1,350 @@
+"""The benchmark harness on the CPU: its imports, its files found by name,
+its window arithmetic, its work counts, its layer rule, its reference
+against the port's CPU path, and ``correct`` coming out false for a
+broken program and for the lower-precision control.
+
+    python -m pytest -p no:cacheprovider benchmarks/tests -q
+"""
+
+import ast
+import copy
+import hashlib
+import json
+import shutil
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(ROOT))
+
+from benchmarks import spec, trace, volumes, work  # noqa: E402
+from benchmarks.reference import plain  # noqa: E402
+from benchmarks.run import (  # noqa: E402
+    FORBIDDEN, Program, closed_loop, reference, run)
+
+HERE = ROOT / "benchmarks"
+CPU = torch.device("cpu")
+
+
+def imported(path: Path) -> set:
+    """Top-level names of the modules a file imports (absolute imports)."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_nothing_imports_jax_or_the_jax_package():
+    for path in HERE.rglob("*.py"):
+        assert not imported(path) & set(FORBIDDEN), path
+
+
+def test_the_reference_imports_nothing_of_the_program():
+    for path in (HERE / "reference").rglob("*.py"):
+        assert imported(path) <= {"__future__", "contextlib", "functools",
+                                  "numpy", "torch"}, path
+
+
+def test_every_cell_and_metric_resolves_to_its_files():
+    bench = spec.benchmark()
+    for entry in bench["configs"]:
+        assert (ROOT / entry["file"]).is_relative_to(HERE)
+    for w in bench["workloads"]:
+        cell = spec.load(w["name"])
+        assert cell.config["name"] == w["config"]
+        assert cell.traffic["name"] == w["traffic"]
+        assert set(cell.limits) == {"max_err", "rms_err"}
+        assert {m["name"] for m in cell.end_to_end} >= {"mvoxel_s", "setup_s"}
+        assert cell.per_layer
+    for m in bench["per_layer"]:
+        assert callable(spec.reader(m["name"]))
+
+
+def _hashes(root: Path) -> dict:
+    return {p: hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted((root / "benchmarks").rglob("*")) if p.is_file()}
+
+
+def test_a_new_config_mix_and_metric_are_found_as_new_files(tmp_path):
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
+    shutil.copytree(HERE, tmp_path / "benchmarks",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = _hashes(tmp_path)
+    here = tmp_path / "benchmarks"
+    config = json.loads((here / "configs/epfl_ca1_165x768x1024.json").read_text())
+    config.update(name="tiny_8x40x40")
+    config["volume"]["shape"] = [8, 40, 40]
+    (here / "configs/tiny_8x40x40.json").write_text(json.dumps(config))
+    mix = json.loads((here / "traffic/compose_f32.json").read_text())
+    mix.update(name="compose_symmetric_f32")
+    mix["flow"]["symmetric_adjacent"] = True
+    (here / "traffic/compose_symmetric_f32.json").write_text(json.dumps(mix))
+    (here / "limits/tiny.symmetric.json").write_text(
+        json.dumps({"max_err": 1e-6, "rms_err": 1e-7}))
+    (here / "metrics/tiny.launches.py").write_text(
+        "def read(trace):\n    return 2 * trace.launches()\n")
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "tiny_8x40x40", "source": "x",
+                             "file": "benchmarks/configs/tiny_8x40x40.json",
+                             "reduced": [], "why": "x"})
+    bench["workloads"].append({"name": "tiny.symmetric",
+                               "config": "tiny_8x40x40",
+                               "traffic": "compose_symmetric_f32",
+                               "chips": 1, "why": "x"})
+    bench["per_layer"].append({"name": "tiny.launches", "unit": "launches",
+                               "better": "lower", "source": "device_trace",
+                               "layer": "pipeline", "moves": "mvoxel_s",
+                               "workloads": ["tiny.symmetric"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    cell = spec.load("tiny.symmetric", root=tmp_path)
+    assert cell.shape == (8, 40, 40)
+    assert cell.flow["symmetric_adjacent"] and cell.flow["tap_mode"] == "compose"
+    assert "tiny.launches" in [m["name"] for m in cell.per_layer]
+    assert "tiny.launches" not in [m["name"] for m in
+                                   spec.load("epfl.solve", tmp_path).per_layer]
+
+    class Fake:
+        def launches(self):
+            return 21.0
+
+    assert spec.reader("tiny.launches", tmp_path)(Fake()) == 42.0
+    after = _hashes(tmp_path)
+    assert {p: h for p, h in after.items() if p in before} == before
+
+
+def test_the_window_counts_every_volume_and_all_its_time():
+    # volumes take 0.1 s but the 6th stalls for 2 s; --seconds 1.5
+    t = [0.0]
+    durations = iter([0.1] * 5 + [2.0] + [0.1] * 20)
+
+    def clock():
+        return t[0]
+
+    def step(vol):
+        t[0] += next(durations)
+        return vol
+
+    window, kept = closed_loop(step, [0, 1, 2, 3], 1.5, keep=2, clock=clock)
+    # the stall ends at 2.5 s, after --seconds: the window ends there
+    assert len(window.spans) == 6 and window.seconds == pytest.approx(2.5)
+    assert kept == [2]
+    assert window.mvoxel_s(10**6) == pytest.approx(6 / 2.5)
+    walls = [0.1] * 5 + [2.0]
+    assert window.walls == pytest.approx(walls)
+    # at least one round of the pool, however short --seconds
+    t[0] = 0.0
+    durations = iter([0.1] * 8)
+    window, _ = closed_loop(step, [0, 1, 2, 3], 0.0, clock=clock)
+    assert len(window.spans) == 4
+
+
+FLOW = {"levels": 3, "winsize": 5, "iterations": 3, "poly_n": 5,
+        "poly_sigma": 1.2, "pyr_scale": 0.5, "min_size": 32,
+        "use_initial_flow": True, "max_displacement": 8,
+        "adjacent_displacement": 4, "presmooth": 0.0, "tap_mode": "solve",
+        "symmetric_adjacent": False}
+
+
+def test_the_work_counts_by_hand():
+    # a 64^3 cube, sigma 1: ks2 4, stacks of 72 planes, levels 64^2 and
+    # 32^2 (16 < min_size 32), 5120 px a plane; the three passes alike
+    shape, sigma = (64, 64, 64), (1.0, 1.0, 1.0)
+    solve = work.tap_solve(shape, sigma, FLOW)
+    assert solve.flops == 3 * (8 * 64 * 5120 * 3 * 137)
+    assert solve.bytes == 3 * 4 * (72 * 5120 * 5 + 8 * 64 * 4096 * 2)
+    assert solve.bound == "operations"
+    composed = work.tap_solve(shape, sigma, {**FLOW, "tap_mode": "compose"})
+    assert composed.flops == 3 * (2 * 71 * 5120 * 3 * 137)
+    assert composed.bytes == 3 * 4 * (72 * 5120 * 5 + 2 * 71 * 4096 * 2)
+    # blur taps 3 (level 0) and 3 (level 1): 2 * 2 * 6 flop a full pixel;
+    # nine 11-tap filters and nine combining operations a level pixel
+    pyr = work.expansion(shape, sigma, FLOW)
+    assert pyr.flops == 3 * 72 * (24 * 4096 + 207 * 5120)
+    assert pyr.bytes == 3 * 4 * 72 * (4096 + 5 * 5120)
+    assert pyr.bound == "bytes"
+    comp = work.compose(shape, sigma, FLOW)
+    assert comp.flops == 3 * 8 * 42 * 64 * 4096
+    assert comp.bytes == 3 * 4 * 4096 * (2 * 71 * 2 + 72 + 2 * 64)
+    assert comp.least_ms == pytest.approx(
+        1e3 * max(comp.bytes / 3.35e12, comp.flops / 67e12))
+
+
+class _Cell:
+    shape = (4, 64, 64)
+    config = {"sigma": [1.0, 1.0, 1.0]}
+    flow = FLOW
+
+
+def _events(solve_launches: int):
+    """A window of one volume: the host window, an OFE_expansion range
+    with one op in it, ops outside; the device kernels of each layer."""
+    E = trace.Event
+    ev = [E("bench.window", False, 0, 10_000, thread=1),
+          E("bench.denoise", False, 10, 9_000, thread=1),
+          E("OFE_expansion", False, 100, 2_000, thread=1),
+          E("aten::mul", False, 200, 300, thread=1, corr=5),
+          E("aten::index_select", False, 2_100, 2_200, thread=1, corr=6),
+          E("aten::add_", False, 2_300, 2_400, thread=1, corr=7),
+          E("aten::copy_", False, 9_100, 9_900, thread=1, corr=8),
+          E("OFE_expansion", True, 250, 1_500),
+          E("void at::native::vectorized_elementwise_kernel<4>(mul)", True,
+            300, 1_000, linked=5),
+          E("void at::native::indexSelectLargeIndex<float>", True,
+            2_150, 2_250, linked=6),
+          E("void at::native::vectorized_elementwise_kernel<4>(add)", True,
+            2_400, 2_500, linked=7),
+          E("sm90_xmma_gemm_f32f32_f32f32_f32_tn_n", True, 2_500, 2_600),
+          E("void sample_kernel(float const*)", True, 5_000, 5_400),
+          E("void compose_run_kernel<float>(float const*)", True, 5_400,
+            5_500),
+          E("Memcpy DtoH (Device -> Pageable)", True, 9_200, 9_800, linked=8)]
+    step = 2_000 // solve_launches
+    ev += [E("void umuf_kernel<float>(float const*)", True,
+             3_000 + i * step, 3_000 + (i + 1) * step)
+           for i in range(solve_launches)]
+    return ev
+
+
+def test_the_layer_rule_and_the_idle_share():
+    t = trace.Trace(_events(1), 1, _Cell())
+    ms = {layer: t.layer_ms(layer) for layer in trace.LAYERS}
+    assert ms == pytest.approx({
+        "tap solve": 2_000e-6, "tap warp": 400e-6, "compose pass": 100e-6,
+        "resize": 100e-6, "expansion pyramid": 700e-6,
+        "pipeline": 100e-6 + 600e-6, "other elementwise": 100e-6})
+    # the mirrored range is no work; busy is the union of the rest
+    assert t.launches() == 8
+    assert t.busy_s == pytest.approx((700 + 100 + 200 + 2_000 + 500 + 600)
+                                     / 1e9)
+    assert t.window_s == pytest.approx(10_000 / 1e9)
+    idle = t.idle_by_host()
+    assert sum(idle.values()) == 10_000 - 4_100
+    assert idle == {"bench.window": 300, "OFE_expansion": 1_150,
+                    "bench.denoise": 150 + 400 + 3_700, "aten::copy_": 200}
+    assert spec.reader("device.idle_pct")(t) == pytest.approx(59.0)
+    assert spec.reader("tap_warp.ms")(t) == pytest.approx(0.0004)
+    out = t.breakdown()
+    assert out["device_ops"][0] == ["void umuf_kernel<float>(float const*)",
+                                    2e-6]
+    assert len(out["idle_gaps"]) <= trace.TOP
+
+
+def test_a_roofline_share_is_unchanged_by_more_launches():
+    one = spec.reader("tap_solve.roofline_pct")(trace.Trace(_events(1), 1,
+                                                            _Cell()))
+    four = spec.reader("tap_solve.roofline_pct")(trace.Trace(_events(4), 1,
+                                                             _Cell()))
+    assert one == pytest.approx(four)
+    least = work.tap_solve(_Cell.shape, _Cell.config["sigma"], FLOW).least_ms
+    assert one == pytest.approx(100 * least / 0.002)
+
+
+def tiny(workload: str, shape=(8, 64, 64)):
+    cell = spec.load(workload)
+    cell.config = copy.deepcopy(cell.config)
+    cell.config["volume"]["shape"] = list(shape)
+    return cell
+
+
+@pytest.mark.parametrize("workload", ["epfl.solve", "czii.compose"])
+def test_the_reference_is_the_ports_cpu_path(workload):
+    from flowdenoising_tpu_torch.core.pipeline import denoise
+
+    cell = tiny(workload, (12, 64, 72))
+    vol = volumes.volume(cell.config, 3, 0, CPU).numpy()
+    ref = reference(cell, vol, CPU)
+    out = denoise(vol, Program(cell, CPU).cfg, device="cpu")
+    assert torch.equal(out, ref)
+    assert not torch.equal(ref, torch.as_tensor(vol))
+
+
+def test_a_sound_run_is_correct():
+    cell = tiny("czii.compose")
+    result, compared = run(cell, 2**31 + 11, 0.0, False, CPU, 0.0)
+    assert result["correct"] and result["failed"] == 0
+    assert result["attempted"] == 4
+    assert compared["max_err"]["value"] == 0.0
+    assert set(result["metrics"]) == {"mvoxel_s", "peak_gib", "setup_s"}
+
+
+def _unchanged(program):
+    return lambda vol: vol.copy()
+
+
+def _half_left_out(program):
+    def step(vol):
+        # the first half of the Z planes filtered; the rest left as they came
+        out = program(vol)
+        half = vol.shape[0] // 2
+        out[half:] = vol[half:]
+        return out
+    return step
+
+
+def _altered(program):
+    def step(vol):
+        out = program(vol)
+        out[1, 2, 3] += 0.25 * (out.max() - out.min())
+        return out
+    return step
+
+
+@pytest.mark.parametrize("fault", [_unchanged, _half_left_out, _altered])
+@pytest.mark.parametrize("workload", ["epfl.solve", "czii.compose"])
+def test_a_broken_program_is_not_correct(workload, fault):
+    cell = tiny(workload)
+    program = Program(cell, CPU)
+    result, compared = run(cell, 5, 0.0, False, CPU, 0.0, fault(program))
+    assert not result["correct"]
+    assert result["failed"] >= 1
+    assert any(v["value"] > v["limit"] for v in compared.values())
+
+
+def test_volumes_repeat_from_the_seed_and_differ_across_the_pool():
+    cell = tiny("epfl.solve", (6, 40, 40))
+    big = 2**31 + 12345
+    a = volumes.pool(cell.config, cell.traffic, big, CPU)
+    b = volumes.pool(cell.config, cell.traffic, big, CPU)
+    assert len(a) == 4 and all(np.array_equal(x, y) for x, y in zip(a, b))
+    assert not np.array_equal(a[0], a[1])
+    m = tiny("czii.compose", (6, 40, 40))
+    c = volumes.pool(m.config, m.traffic, big, CPU)
+    assert all(np.array_equal(x, y) for x, y in
+               zip(c, volumes.pool(m.config, m.traffic, big, CPU)))
+    assert all(x.dtype == np.float32 for x in a + c)
+    assert not np.array_equal(c[0], c[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workload", ["epfl.solve", "czii.compose",
+                                      "czii.solve", "epfl.compose"])
+def test_the_tf32_control_is_not_correct_on_the_card(workload):
+    # at the cell's own size: TF32's error grows with the volume, and at
+    # a cut size a control can read under the cell's limits
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: TF32 products exist only there")
+    from benchmarks import compare
+
+    cell = spec.load(workload)
+    cuda = torch.device("cuda", 0)
+    vol = volumes.volume(cell.config, 9, 0, cuda).cpu().numpy()
+    out = Program(cell, cuda)(vol)
+    ref = reference(cell, vol, cuda)
+    ctl = reference(cell, vol, cuda, tf32=True).cpu().numpy()
+    assert compare.judge([out], ref, cell.limits)[1] == 0
+    assert compare.judge([ctl], ref, cell.limits)[1] == 1
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -11, 1.0 + 2 ** -12,
+                      -3.0 - 2 ** -9])
+    assert plain.to_tf32(x).tolist() == [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -10,
+                                         1.0, -3.0 - 2 ** -9]
