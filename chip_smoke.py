@@ -1256,12 +1256,12 @@ def device_split(fn) -> tuple[float, float, list, dict]:
     """torch.profiler over one ``fn()``: (device busy ms, profiled wall ms,
     [(family, ms, launches)] by device time, {family: (launches, a
     kernel's name)} of the device events launched inside the split route's
-    ``OFE_solve`` and ``warping`` ranges)."""
+    ``OFE_solve``, ``warping`` and ``fdt.compose`` ranges)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from flowdenoising_tpu_torch.ops.farneback import EXPANSION_RANGE, SOLVE_RANGE
-    from flowdenoising_tpu_torch.ops.warp import WARP_RANGE
+    from flowdenoising_tpu_torch.utils.tracing import (
+        COMPOSE_RANGE, SOLVE_RANGE, WARP_RANGE)
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1281,7 +1281,7 @@ def device_split(fn) -> tuple[float, float, list, dict]:
         cpu = ev.device_type() == DeviceType.CPU
         if cpu and not ev.linked_correlation_id() and ev.correlation_id() > 0:
             ops[ev.correlation_id()] = (ev.start_thread_id(), ev.start_ns())
-        if ev.name() in (SOLVE_RANGE, WARP_RANGE):
+        if ev.name() in (SOLVE_RANGE, WARP_RANGE, COMPOSE_RANGE):
             if cpu:
                 host_spans.setdefault(ev.start_thread_id(), []).append(
                     (ev.start_ns(), ev.end_ns()))
@@ -1294,13 +1294,14 @@ def device_split(fn) -> tuple[float, float, list, dict]:
             return any(lo <= start <= hi for lo, hi in host_spans.get(thread, ()))
         return any(lo <= ev.start_ns() <= hi for lo, hi in device_spans)
 
+    host_names = {ev.name() for ev in events
+                  if ev.device_type() == DeviceType.CPU}
     fam, in_ranges = {}, {}
     for ev in events:
-        # the ranges the port puts around the expansion pyramid and the
-        # split route's stages also show on the device; they span kernels
-        # and are none
+        # the port's ranges (utils.tracing) also show on the device; they
+        # span kernels and are none
         if (ev.device_type() != DeviceType.CUDA
-                or ev.name() in (EXPANSION_RANGE, SOLVE_RANGE, WARP_RANGE)):
+                or ev.name() in host_names):
             continue
         key = kernel_family(ev.name())
         ms, count = fam.get(key, (0.0, 0))
@@ -1431,10 +1432,10 @@ def phase_main(dev, size: int, seed: int) -> tuple[dict, dict]:
             if name in V2_MEASURED:
                 require(len(measured) == 1 and measured[0] is not None,
                         f"{name}: the CLI logged no measured stage report")
-                # the compose pass's warps are its OFE_solve
+                # the compose pass's warps are its compose stage
                 keys = ["OFE_solve", "OFE_expansion"]
-                if cfg.flow.tap_mode == "solve":
-                    keys.append("warping")
+                keys.append("warping" if cfg.flow.tap_mode == "solve"
+                            else "compose")
                 for key in keys:
                     require(measured[0][key] > 0, f"{name}: measured {key} is 0")
                 print(f"[4 main] {size}^3 {name} -v 2 measured stage split, ms: "
@@ -1514,15 +1515,15 @@ def phase_main(dev, size: int, seed: int) -> tuple[dict, dict]:
                     stray = {k: c for k, c in in_ranges.items()
                              if k not in SPLIT_RANGE_FAMILIES}
                     require(not stray, f"{name}: device events in the "
-                            f"OFE_solve and warping ranges other than the "
-                            f"kernels: {stray}")
+                            f"OFE_solve, warping and fdt.compose ranges other "
+                            f"than the kernels: {stray}")
                     kernel = ("K-compose-run-split" if cfg.flow.tap_mode == "compose"
                               else "K-sample-split")
                     require(in_ranges.get("K-umuf-split") and in_ranges.get(kernel),
                             f"{name}: the ranges hold {in_ranges}, not "
                             f"K-umuf-split and {kernel}")
                     held = {k: c for k, (c, _) in in_ranges.items()}
-                    print(f"[4 main] {size}^3 {name}: the OFE_solve and warping "
+                    print(f"[4 main] {size}^3 {name}: the OFE_solve, warping and fdt.compose "
                           f"ranges hold {held} and no plain gather",
                           flush=True)
             del vol, warm

@@ -60,8 +60,9 @@ from flowdenoising_tpu_torch.ops.cuda.sample import (
     displace_sample, sample_split)
 from flowdenoising_tpu_torch.ops.device import as_tensors
 from flowdenoising_tpu_torch.ops.farneback import (
-    SOLVE_RANGE, flow_from_pyramids, polyexp_pyramid, split_route, tap_solver)
-from flowdenoising_tpu_torch.ops.warp import WARP_RANGE
+    flow_from_pyramids, polyexp_pyramid, split_route, tap_solver)
+from flowdenoising_tpu_torch.utils.tracing import (
+    COMPOSE_RANGE, WARP_RANGE, span)
 
 
 def pad_stack(vol: torch.Tensor, pad: int, boundary: Boundary,
@@ -75,16 +76,23 @@ def pad_stack(vol: torch.Tensor, pad: int, boundary: Boundary,
     if pad == 0:
         return vol
     n = vol.shape[0]
-    if boundary is Boundary.WRAP:
-        idx = np.arange(-pad, n + pad) % n
-        return vol.index_select(0, torch.as_tensor(idx, device=vol.device))
-    if boundary is Boundary.REPLICATE:
-        idx = np.clip(np.arange(-pad, n + pad), 0, n - 1)
-        return vol.index_select(0, torch.as_tensor(idx, device=vol.device))
+    if boundary in (Boundary.WRAP, Boundary.REPLICATE):
+        idx = np.arange(-pad, n + pad)
+        idx = idx % n if boundary is Boundary.WRAP else np.clip(idx, 0, n - 1)
+        with span("fdt.drain.pad_index"):
+            idx = torch.as_tensor(idx, device=vol.device)
+        return vol.index_select(0, idx)
     if boundary is Boundary.MEAN:
         if mean_val is None:
             mean_val = vol.mean()
-        fill = torch.as_tensor(mean_val, dtype=vol.dtype, device=vol.device)
+        if (isinstance(mean_val, torch.Tensor)
+                and mean_val.device == vol.device):
+            fill = mean_val.to(vol.dtype)
+        else:
+            # a value from the host: its copy drains the stream
+            with span("fdt.drain.pad_fill"):
+                fill = torch.as_tensor(mean_val, dtype=vol.dtype,
+                                       device=vol.device)
         fill = fill.expand((pad,) + tuple(vol.shape[1:]))
         return torch.cat([fill, vol, fill], dim=0)
     raise ValueError(f"unknown boundary {boundary}")
@@ -159,14 +167,16 @@ def of_pass_padded(padded: torch.Tensor, taps: np.ndarray,
                 # the tap flow carried and sampled in bf16, the weighted
                 # warp added into the accumulator by the kernel
                 flow = flow.to(dtype)
-                with torch.profiler.record_function(WARP_RANGE):
+                with span(WARP_RANGE):
                     sample_split(src[start:start + n], flow[:, 0],
                                  flow[:, 1], acc, weight)
             else:
                 if dtype != torch.float32:
                     flow = flow.to(dtype).float()
-                warped = displace_sample(src[start:start + n], flow[:, 0],
-                                         flow[:, 1], flow_cfg.max_displacement)
+                with span(WARP_RANGE):
+                    warped = displace_sample(src[start:start + n], flow[:, 0],
+                                             flow[:, 1],
+                                             flow_cfg.max_displacement)
                 acc.add_((warped * weight).to(dtype))
     return acc.float()
 
@@ -210,7 +220,7 @@ def _of_pass_composed(padded: torch.Tensor, taps: np.ndarray,
                    flow_from_pyramids(hi, lo, flow_cfg, None).to(dtype))
         del r_levels, lo, hi
         acc = padded[ks2:ks2 + n] * rounded(taps[ks2], dtype)
-        with torch.profiler.record_function(SOLVE_RANGE):
+        with span(COMPOSE_RANGE):
             compose_run_split(adj_fwd, adj_bwd, padded, acc, weights)
         return acc.float()
     # the adjacent flows in the pass dtype; the kernel's sources in bf16
@@ -226,8 +236,9 @@ def _of_pass_composed(padded: torch.Tensor, taps: np.ndarray,
 
     nb = padded.to(src)
     acc = (padded[ks2:ks2 + n] * rounded(taps[ks2], dtype)).float()
-    return compose_run(adj_fwd, adj_bwd, nb, acc, weights, d,
-                       round_carry=dtype != torch.float32)
+    with span(COMPOSE_RANGE):
+        return compose_run(adj_fwd, adj_bwd, nb, acc, weights, d,
+                           round_carry=dtype != torch.float32)
 
 
 def of_pass(vol, taps: np.ndarray, flow_cfg: FlowConfig,

@@ -30,6 +30,7 @@ import torch
 
 from flowdenoising_tpu_torch.config import FilterConfig
 from flowdenoising_tpu_torch.ops.farneback import split_route
+from flowdenoising_tpu_torch.utils.tracing import span
 
 # Peak bytes per padded voxel of one pass, by the pass dtype (the no-flow
 # Gaussian apart): the largest ratio measured over windows of 32-272
@@ -118,7 +119,8 @@ def device_budget(device) -> int | None:
     device = torch.device(device)
     if device.type != "cuda":
         return None
-    free, _ = torch.cuda.mem_get_info(device)
+    with span("fdt.drain.mem_info"):
+        free, _ = torch.cuda.mem_get_info(device)
     cached = (torch.cuda.memory_reserved(device)
               - torch.cuda.memory_allocated(device))
     return int(HEADROOM * (free + cached))

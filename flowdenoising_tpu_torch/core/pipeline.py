@@ -40,6 +40,7 @@ from flowdenoising_tpu_torch.core.axis_filter import (
     gaussian_pass_padded, of_pass_padded, pad_stack)
 from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
 from flowdenoising_tpu_torch.ops.device import as_tensors, require_device
+from flowdenoising_tpu_torch.utils.tracing import PASS_RANGE, span
 
 # Canonical axes of each pass's layout, in Z, Y, X pass order.
 _PASS_LAYOUTS = [(0, 1, 2), (1, 0, 2), (2, 0, 1)]
@@ -117,7 +118,8 @@ def _run_passes(vol: torch.Tensor, kernels, cfg: FilterConfig, mean_val,
                 padded_pass_fn, on_pass, start_pass: int):
     """Passes ``start_pass``.. over ``vol``, the canonical (Z, Y, X) result
     of pass ``start_pass - 1`` (the input for 0); a window per pass as
-    ``memory.pass_slab`` sizes it for the card."""
+    ``memory.pass_slab`` sizes it for the card.  Each pass runs in the
+    range ``fdt.pass``, ``on_pass`` after it."""
     shape = tuple(vol.shape)
     out = vol
     del vol
@@ -126,19 +128,20 @@ def _run_passes(vol: torch.Tensor, kernels, cfg: FilterConfig, mean_val,
         if i < start_pass:
             continue
         target = _PASS_LAYOUTS[i]
-        perm = tuple(layout.index(ax) for ax in target)
-        if perm != (0, 1, 2):
-            out = out.permute(perm)
-        layout = target
-        out = out.contiguous()
-        ks2 = len(taps) // 2
-        n, h, w = (shape[ax] for ax in target)
-        slab = memory.pass_slab(cfg, n, h, w, ks2,
-                                memory.device_budget(out.device))
-        padded = pad_stack(out, ks2, cfg.boundary, mean_val)
-        del out
-        out = slabbed_padded_pass(padded_pass_fn, padded, taps, n, slab)
-        del padded
+        with span(PASS_RANGE):
+            perm = tuple(layout.index(ax) for ax in target)
+            if perm != (0, 1, 2):
+                out = out.permute(perm)
+            layout = target
+            out = out.contiguous()
+            ks2 = len(taps) // 2
+            n, h, w = (shape[ax] for ax in target)
+            slab = memory.pass_slab(cfg, n, h, w, ks2,
+                                    memory.device_budget(out.device))
+            padded = pad_stack(out, ks2, cfg.boundary, mean_val)
+            del out
+            out = slabbed_padded_pass(padded_pass_fn, padded, taps, n, slab)
+            del padded
         if on_pass is not None:
             on_pass(i, out.permute(tuple(target.index(ax) for ax in (0, 1, 2))))
     return out.permute(tuple(layout.index(ax) for ax in (0, 1, 2))).contiguous()

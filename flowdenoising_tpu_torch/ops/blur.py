@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from flowdenoising_tpu_torch.ops.device import as_tensors
+from flowdenoising_tpu_torch.utils.tracing import span
 
 # OpenCV getGaussianKernel fixed taps for sigma<=0 and ksize in {1,3,5,7}.
 _SMALL_GAUSSIAN_TAB = {
@@ -73,7 +74,9 @@ def corr1d(img: torch.Tensor, taps, axis: int, pad_mode: str) -> torch.Tensor:
     axis = axis % img.ndim
     n = img.shape[axis]
     idx = np.pad(np.arange(n), (r, r), mode=pad_mode)
-    p = img.index_select(axis, torch.as_tensor(idx, device=img.device))
+    with span("fdt.drain.blur_index"):
+        idx = torch.as_tensor(idx, device=img.device)
+    p = img.index_select(axis, idx)
     out = None
     for k in range(len(taps)):
         term = p.narrow(axis, k, n) * rounded(taps[k], img.dtype)

@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from flowdenoising_tpu_torch.utils.tracing import span
+
 
 def require_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises for a CUDA device when none
@@ -29,6 +31,7 @@ def as_tensors(*xs, device="cuda", dtype=torch.float32) -> tuple:
         if x is not None and not isinstance(x, torch.Tensor):
             if target is None:
                 target = require_device(device)
-            x = torch.as_tensor(np.asarray(x), dtype=dtype, device=target)
+            with span("fdt.drain.input"):
+                x = torch.as_tensor(np.asarray(x), dtype=dtype, device=target)
         out.append(x)
     return tuple(out)

@@ -66,6 +66,8 @@ from flowdenoising_tpu_torch.ops.resize import (
     _full_float32, pyramid_sizes, resize_area, resize_linear)
 from flowdenoising_tpu_torch.ops.warp import (
     displace_sample_plain, displace_sample_xla)
+from flowdenoising_tpu_torch.utils.tracing import (
+    EXPANSION_RANGE, SOLVE_RANGE, span)
 
 __all__ = ["EXPANSION_RANGE", "SOLVE_RANGE", "farneback_flow",
            "flow_from_pyramids", "image_pyramid", "matmul_precision",
@@ -74,12 +76,6 @@ __all__ = ["EXPANSION_RANGE", "SOLVE_RANGE", "farneback_flow",
            "split_iterate_plain", "split_route", "tap_solver", "umuf_iterate",
            "umuf_iterate_plain", "update_flow", "update_flow_plain",
            "update_matrices", "update_matrices_plain", "update_matrices_xla"]
-
-# The torch.profiler ranges by which the -v 2 measured report
-# (utils.trace_report) finds the kernels of the expansion pyramid and of the
-# split route's solves.
-EXPANSION_RANGE = "OFE_expansion"
-SOLVE_RANGE = "OFE_solve"
 
 # Border down-weighting ramp (OpenCV farneback.cpp FarnebackUpdateMatrices).
 _BORDER_RAMP = np.array([0.14, 0.14, 0.4472, 0.4472, 0.4472], dtype=np.float64)
@@ -291,7 +287,7 @@ def split_iterate(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
     (B, 5, H, W), flow bf16 or float32 (B, 2, H, W)) in the profiler range
     ``SOLVE_RANGE``: K-umuf-split on the card, ``split_iterate_plain`` on
     the CPU (``umuf_split_iterate``).  Returns the float32 flow."""
-    with torch.profiler.record_function(SOLVE_RANGE):
+    with span(SOLVE_RANGE):
         return umuf_split_iterate(r0, r1, flow, iters, winsize)
 
 
@@ -403,8 +399,10 @@ def _solve_levels(levels, cfg: FlowConfig, initial_flow: torch.Tensor | None,
             continue
         if round_level_flow and not _tiny_level(d, hk, wk):
             flow = flow.to(torch.bfloat16).float()
-        flow = umuf_iterate(r0, r1, flow.contiguous(), cfg.iterations, d,
-                            cfg.winsize, ramp_bf16=ramp_bf16)
+        flow = flow.contiguous()
+        with span(SOLVE_RANGE):
+            flow = umuf_iterate(r0, r1, flow, cfg.iterations, d, cfg.winsize,
+                                ramp_bf16=ramp_bf16)
     return flow
 
 
@@ -430,7 +428,7 @@ def image_pyramid(img: torch.Tensor, cfg: FlowConfig) -> list[torch.Tensor]:
 def polyexp_pyramid(img: torch.Tensor, cfg: FlowConfig) -> list[torch.Tensor]:
     """Per-level expansions (..., 5, h_k, w_k) of (..., H, W) images, in
     the profiler range ``EXPANSION_RANGE``."""
-    with torch.profiler.record_function(EXPANSION_RANGE):
+    with span(EXPANSION_RANGE):
         return [poly_expand(i, cfg.poly_n, cfg.poly_sigma,
                             channel_first=True).contiguous()
                 for i in image_pyramid(img, cfg)]

@@ -28,6 +28,8 @@ import functools
 import numpy as np
 import torch
 
+from flowdenoising_tpu_torch.utils.tracing import RESIZE_RANGE, span
+
 
 @functools.lru_cache(maxsize=None)
 def linear_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -99,17 +101,22 @@ def _apply_separable(img: torch.Tensor, wr: np.ndarray,
     shapes are the plane's, never the batch's: folding the batch into a
     matrix dimension let the library pick another algorithm, with another
     order of the sums, for another number of planes, so a window's planes
-    came out other than the whole axis's."""
-    dtype = img.dtype
-    lead = tuple(img.shape[:-2])
-    x = img.reshape((-1,) + tuple(img.shape[-2:])).float()
-    b = x.shape[0]
-    wr_t = torch.as_tensor(wr, dtype=dtype, device=img.device).float()
-    wc_t = torch.as_tensor(wc, dtype=dtype, device=img.device).float()
-    with _full_float32():
-        out = torch.bmm(wr_t.expand(b, -1, -1), x).to(dtype)
-        out = torch.bmm(out.float(), wc_t.t().expand(b, -1, -1)).to(dtype)
-    return out.reshape(lead + tuple(out.shape[-2:]))
+    came out other than the whole axis's.  Runs in the range
+    ``fdt.resize``; each matrix's copy to the device is a drain of its own
+    (``fdt.drain.resize_matrix``)."""
+    with span(RESIZE_RANGE):
+        dtype = img.dtype
+        lead = tuple(img.shape[:-2])
+        x = img.reshape((-1,) + tuple(img.shape[-2:])).float()
+        b = x.shape[0]
+        with span("fdt.drain.resize_matrix"):
+            wr_t = torch.as_tensor(wr, dtype=dtype, device=img.device).float()
+        with span("fdt.drain.resize_matrix"):
+            wc_t = torch.as_tensor(wc, dtype=dtype, device=img.device).float()
+        with _full_float32():
+            out = torch.bmm(wr_t.expand(b, -1, -1), x).to(dtype)
+            out = torch.bmm(out.float(), wc_t.t().expand(b, -1, -1)).to(dtype)
+        return out.reshape(lead + tuple(out.shape[-2:]))
 
 
 def resize_linear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

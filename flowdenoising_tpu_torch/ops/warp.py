@@ -30,14 +30,11 @@ import torch
 
 from flowdenoising_tpu_torch.ops.cuda import sample as _k_sample
 from flowdenoising_tpu_torch.ops.device import as_tensors
+from flowdenoising_tpu_torch.utils.tracing import WARP_RANGE
 
 __all__ = ["WARP_RANGE", "bilinear_displace_windowed", "bilinear_sample",
            "displace_sample", "displace_sample_plain", "displace_sample_xla",
            "warp_slices"]
-
-# The torch.profiler range around the split route's tap warps
-# (K-sample-split), by which the -v 2 measured report finds their kernels.
-WARP_RANGE = "warping"
 
 
 def bilinear_sample(img: torch.Tensor, fx: torch.Tensor,

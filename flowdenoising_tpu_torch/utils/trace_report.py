@@ -7,14 +7,14 @@ exports the Chrome trace; ``measured_stage_report`` sums the device events
 of that trace by stage:
 
 - ``OFE_solve``     -- the flow-iteration kernels K-umuf, K-umuf-split,
-                       K-compose, K-compose-run(-split), K-um and K-uf (the
-                       kernels that return flow stacks, and the compose
-                       pass), and every other kernel inside a
-                       ``torch.profiler`` range named ``OFE_solve`` (the
-                       split route's compose pass);
+                       K-um and K-uf (the kernels that return flow
+                       stacks), and every other kernel inside a
+                       ``torch.profiler`` range named ``OFE_solve``;
+- ``compose``       -- the compose kernels K-compose and
+                       K-compose-run(-split), and every other kernel inside
+                       a range named ``fdt.compose``;
 - ``warping``       -- K-sample, K-sample-split, and every other kernel
-                       inside a range named ``warping`` (the split route's
-                       tap warps);
+                       inside a range named ``warping``;
 - ``OFE_expansion`` -- every other kernel inside a range named
                        ``OFE_expansion`` (the port puts one around
                        ``ops.farneback.polyexp_pyramid``: its
@@ -22,6 +22,12 @@ of that trace by stage:
 - ``elementwise``   -- every other kernel (tap accumulate, pads, flow
                        scaling, resize products, copies by kernel);
 - ``async_copies``  -- memcpy and memset, left out of the busy total.
+
+The ranges are ``utils.tracing``'s.  The report also logs the program's
+drains (its ``fdt.drain.<site>`` ranges, each a call that held the host
+until the stream drained) by site, and the device idle after them: each
+gap between device events (kernels, copies, sets) that began inside a
+drain, counted whole to the next event, by the drain's site.
 
 A trace without device events (a CPU run) gives None, and the CLI then
 logs the reconstruction of ``utils.stage_report`` instead.
@@ -39,15 +45,17 @@ import tempfile
 
 import torch
 
-from flowdenoising_tpu_torch.ops.farneback import EXPANSION_RANGE, SOLVE_RANGE
-from flowdenoising_tpu_torch.ops.warp import WARP_RANGE
+from flowdenoising_tpu_torch.utils.tracing import (
+    COMPOSE_RANGE, DRAIN_PREFIX, EXPANSION_RANGE, SOLVE_RANGE, WARP_RANGE)
 
-_SOLVE = re.compile(
-    r"\b(umuf|umuf_split|compose|compose_run|compose_run_split|um|uf)_kernel\b")
-_WARP = re.compile(r"\bsample(_split)?_kernel\b")
-# the stage of the kernels inside each of the port's profiler ranges
+# kernel symbol -> stage, the first that matches
+_KERNELS = ((re.compile(r"\b(umuf|umuf_split|um|uf)_kernel\b"), "OFE_solve"),
+            (re.compile(r"\bcompose(_run(_split)?)?_kernel\b"), "compose"),
+            (re.compile(r"\bsample(_split)?_kernel\b"), "warping"))
+# the stage of the kernels inside each of the port's profiler ranges, which
+# do not nest one another
 _RANGES = {EXPANSION_RANGE: "OFE_expansion", SOLVE_RANGE: "OFE_solve",
-           WARP_RANGE: "warping"}
+           COMPOSE_RANGE: "compose", WARP_RANGE: "warping"}
 _COPY_CATS = ("gpu_memcpy", "gpu_memset")
 
 
@@ -81,11 +89,36 @@ def traced_run(export_phase=contextlib.nullcontext, log_dir=None):
     state["path"] = path
 
 
+def _drain_idle(spans: list) -> tuple[dict, dict]:
+    """The drains of a trace's complete events and the idle after them:
+    ({site: drains}, {site: device idle s in the gaps that began inside one
+    of the site's drains}); the sites in the order of their first drain."""
+    drains = sorted((e["ts"], e["ts"] + e.get("dur", 0),
+                     e["name"][len(DRAIN_PREFIX):]) for e in spans
+                    if e.get("cat") == "user_annotation"
+                    and e.get("name", "").startswith(DRAIN_PREFIX))
+    count = {}
+    for _, _, site in drains:
+        count[site] = count.get(site, 0) + 1
+    idle = dict.fromkeys(count, 0.0)
+    starts = [lo for lo, _, _ in drains]
+    end = None
+    for lo, hi in sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in spans
+                         if e.get("cat") in ("kernel",) + _COPY_CATS):
+        if end is not None and lo > end:
+            # the device idled from ``end`` to ``lo``: whose drain held it?
+            i = bisect.bisect_right(starts, end) - 1
+            if i >= 0 and end <= drains[i][1]:
+                idle[drains[i][2]] += (lo - end) / 1e6   # us -> s
+        end = hi if end is None else max(end, hi)
+    return count, idle
+
+
 def measured_stage_report(path: str) -> dict[str, float] | None:
     """Aggregate the trace's device-event durations by stage; logs a table.
 
-    Returns {"OFE_solve": s, "warping": s, "OFE_expansion": s,
-    "elementwise": s, "async_copies": s} (device seconds of the traced
+    Returns {"OFE_solve": s, "compose": s, "warping": s, "OFE_expansion":
+    s, "elementwise": s, "async_copies": s} (device seconds of the traced
     window), or None when there is no trace or it holds no device kernel.
     """
     if not path or not os.path.exists(path):
@@ -105,32 +138,28 @@ def measured_stage_report(path: str) -> dict[str, float] | None:
         rs.sort()
         starts[pid] = [lo for lo, _, _ in rs]
 
-    def range_stage(e):
+    def stage(e):
+        name = e.get("name", "")
+        for pattern, kernel_stage in _KERNELS:
+            if pattern.search(name):
+                return kernel_stage
         rs = ranges.get(e.get("pid"))
         if not rs:
             return "elementwise"
         i = bisect.bisect_right(starts[e.get("pid")], e["ts"]) - 1
         return rs[i][2] if i >= 0 and e["ts"] <= rs[i][1] else "elementwise"
 
-    totals = {"OFE_solve": 0.0, "warping": 0.0, "OFE_expansion": 0.0,
-              "elementwise": 0.0, "async_copies": 0.0}
+    totals = {"OFE_solve": 0.0, "compose": 0.0, "warping": 0.0,
+              "OFE_expansion": 0.0, "elementwise": 0.0, "async_copies": 0.0}
     busy = 0.0
     for e in spans:
         cat = e.get("cat")
         dur = e.get("dur", 0) / 1e6   # us -> s
         if cat in _COPY_CATS:
             totals["async_copies"] += dur
-            continue
-        if cat != "kernel":
-            continue
-        name = e.get("name", "")
-        if _SOLVE.search(name):
-            totals["OFE_solve"] += dur
-        elif _WARP.search(name):
-            totals["warping"] += dur
-        else:
-            totals[range_stage(e)] += dur
-        busy += dur
+        elif cat == "kernel":
+            totals[stage(e)] += dur
+            busy += dur
 
     if busy == 0.0:
         return None
@@ -141,4 +170,9 @@ def measured_stage_report(path: str) -> dict[str, float] | None:
         logging.info(f"[stages]   {name:14s} {secs:8.4f}s  ({pct:4.1f}%)")
     logging.info(f"[stages]   {'device busy':14s} {busy:8.4f}s "
                  "(memcpy and memset are excluded)")
+    count, idle = _drain_idle(spans)
+    logging.info(f"[stages]   {'drains':14s} {sum(count.values()):8d}   "
+                 + ", ".join(f"{site} {n}" for site, n in count.items()))
+    logging.info(f"[stages]   {'idle after':14s} {sum(idle.values()):8.4f}s  "
+                 + ", ".join(f"{site} {s:.4f}s" for site, s in idle.items()))
     return totals

@@ -38,7 +38,7 @@ def main() -> int:
     import chip_smoke
     from flowdenoising_tpu_torch.config import FilterConfig, FlowConfig
     from flowdenoising_tpu_torch.core.pipeline import denoise
-    from flowdenoising_tpu_torch.ops.farneback import EXPANSION_RANGE
+    from flowdenoising_tpu_torch.utils import tracing
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -71,9 +71,13 @@ def main() -> int:
                 torch.cuda.synchronize()
             compose_ms = busy_ms = 0.0
             for ev in prof.events():
-                # the expansion range also shows on the device; it spans
-                # kernels and is none
-                if ev.device_type != DeviceType.CUDA or ev.name == EXPANSION_RANGE:
+                # the port's ranges also show on the device; they span
+                # kernels and are none
+                if ev.device_type != DeviceType.CUDA or ev.name in (
+                        tracing.EXPANSION_RANGE, tracing.SOLVE_RANGE,
+                        tracing.WARP_RANGE, tracing.COMPOSE_RANGE,
+                        tracing.RESIZE_RANGE, tracing.PASS_RANGE) or (
+                        ev.name.startswith(tracing.DRAIN_PREFIX)):
                     continue
                 ms = ev.time_range.elapsed_us() / 1e3
                 busy_ms += ms

@@ -29,7 +29,8 @@ from flowdenoising_tpu_torch.utils.trace_report import (
 
 torch.set_num_threads(1)
 
-STAGES = {"OFE_solve", "warping", "OFE_expansion", "elementwise", "async_copies"}
+STAGES = {"OFE_solve", "compose", "warping", "OFE_expansion", "elementwise",
+          "async_copies"}
 
 
 def _kernel(name, ts, dur, pid=0, tid=7, cat="kernel"):
@@ -54,7 +55,8 @@ def test_measured_report_groups_kernels(tmp_path, caplog):
          "args": {"name": "python3"}},
         {"name": "thread_name", "ph": "M", "ts": 0.0, "pid": 0, "tid": 7,
          "args": {"name": "stream 7 "}},
-        # flow-solve kernels: K-umuf, K-compose, K-compose-run, K-um, K-uf
+        # flow-solve kernels: K-umuf, K-um, K-uf; compose kernels:
+        # K-compose, K-compose-run
         _kernel(anon.format("umuf_kernel"), 2000.5, 3_000_000),
         _kernel(anon.format("compose_kernel"), 5000.0, 500_000),
         _kernel("void " + anon.format("compose_run_kernel<__nv_bfloat16>"),
@@ -86,8 +88,8 @@ def test_measured_report_groups_kernels(tmp_path, caplog):
     ]
     totals = measured_stage_report(_write(tmp_path, events))
     assert set(totals) == STAGES
-    want = {"OFE_solve": 4.25, "warping": 1.0, "OFE_expansion": 0.5,
-            "elementwise": 0.125, "async_copies": 2.5}
+    want = {"OFE_solve": 3.5, "compose": 0.75, "warping": 1.0,
+            "OFE_expansion": 0.5, "elementwise": 0.125, "async_copies": 2.5}
     for key, secs in want.items():
         assert totals[key] == pytest.approx(secs, abs=1e-12), key
     assert "MEASURED" in caplog.text
@@ -129,13 +131,15 @@ def test_measured_report_finds_each_kernels_range(tmp_path):
     # ends, between them and on a device without ranges; each kernel lands
     # in the range around it on its own device
     ew = "void at::native::vectorized_elementwise_kernel<4>(int, float*)"
-    names = ["OFE_solve", "warping", "OFE_expansion"]
+    names = {"OFE_solve": "OFE_solve", "warping": "warping",
+             "OFE_expansion": "OFE_expansion", "fdt.compose": "compose"}
     rng = np.random.default_rng(0)
     events, want = [], dict.fromkeys(STAGES, 0.0)
     for i in range(1000):
         pid, lo = i % 2, 100.0 * (i // 2)
-        stage = names[i % 3]
-        events.append({"ph": "X", "cat": "gpu_user_annotation", "name": stage,
+        name = list(names)[i % len(names)]
+        stage = names[name]
+        events.append({"ph": "X", "cat": "gpu_user_annotation", "name": name,
                        "pid": pid, "tid": 7, "ts": lo, "dur": 60.0, "args": {}})
         for ts, where in ((lo, stage), (lo + 60.0, stage),
                           (lo + 80.0, "elementwise")):
@@ -148,6 +152,39 @@ def test_measured_report_finds_each_kernels_range(tmp_path):
     totals = measured_stage_report(_write(tmp_path, events))
     for key, secs in want.items():
         assert totals[key] == pytest.approx(secs, abs=1e-9), key
+
+
+def test_measured_report_logs_the_drains_and_the_idle_after_them(
+        tmp_path, caplog):
+    """Each gap between device events counts whole toward the drain span it
+    began in; a gap that began outside every drain counts nowhere."""
+    caplog.set_level("INFO")
+    ew = "void at::native::vectorized_elementwise_kernel<4>(int, float*)"
+
+    def drain(site, ts, dur):
+        return {"ph": "X", "cat": "user_annotation", "name": "fdt.drain." + site,
+                "pid": 118, "tid": 118, "ts": ts, "dur": dur, "args": {}}
+
+    events = [
+        # device work at 0-100, 150-300, 400-500, 700-800 and 900-1000 ms
+        _kernel(ew, 0.0, 100_000),
+        _kernel("Memcpy HtoD (Pageable -> Device)", 150_000.0, 150_000,
+                cat="gpu_memcpy"),
+        _kernel(ew, 400_000.0, 100_000),
+        _kernel(ew, 700_000.0, 100_000),
+        _kernel(ew, 900_000.0, 100_000),
+        drain("resize_matrix", 90_000.0, 30_000.0),    # 100-150: 50 ms
+        drain("resize_matrix", 290_000.0, 20_000.0),   # 300-400: 100 ms
+        drain("blur_index", 480_000.0, 40_000.0),      # 500-700: 200 ms
+        drain("mem_info", 850_000.0, 100_000.0),       # 800-900 began before
+    ]
+    assert measured_stage_report(_write(tmp_path, events)) is not None
+    lines = [r.getMessage() for r in caplog.records]
+    assert any(re.search(r"drains\s+4\s+resize_matrix 2, blur_index 1, "
+                         r"mem_info 1$", m) for m in lines), lines
+    assert any(re.search(r"idle after\s+0.3500s\s+resize_matrix 0.1500s, "
+                         r"blur_index 0.2000s, mem_info 0.0000s$", m)
+               for m in lines), lines
 
 
 def test_measured_report_none_without_device_kernels(tmp_path):
