@@ -52,7 +52,12 @@ Phases, one or more lines of output each (any failure exits non-zero):
                symmetric and with two link stacks) at the 256^3 pass calls
                (n 256, ks2 8, the 272-plane stack) and on 40 x 261 and
                8 x 1030 planes; timed at the main calls beside their plain
-               versions and bounds.
+               versions and bounds.  Then the float32 expansion pyramid's
+               K-polyexp (a level's expansion, level 0's with its pre-blur)
+               and K-pyr-blur (a level's pre-blur) at every level of the
+               256^3 Z pass's pyramid (the 272-plane padded stack), each
+               call bit for bit its plain version, timed summed over the
+               levels beside the plain versions and the bound.
 4. main     -- paths through the CLI (python -m flowdenoising_tpu_torch
                ... -s 2 2 2) on a seeded size^3 blob volume with noise,
                through MRC files: at --max_displacement 8 solve mode,
@@ -619,6 +624,82 @@ def phase_kernels(dev, seed: int) -> dict:
     res.update(packed_forms(r, t, banded_flow, umuf_operands))
     res.update(compose_runs(r, t))
     res.update(split_warps(r, t))
+    res.update(pyramid_kernels(r, t))
+    return res
+
+
+def pyramid_kernels(r, t, planes: int = 272, size: int = 256) -> dict:
+    """K-polyexp and K-pyr-blur at the main path's pyramid: the Z pass of
+    a 256^3 volume, a padded stack of 272 planes (sigma 2: 8 planes of pad
+    a side) of 256 x 256, every level of the default configuration.  Each
+    launch bit for bit its plain version on the same input (``poly_expand``
+    of level 0's 3-tap pre-blur or of a level's image; ``_sep_correlate``
+    for a level's pre-blur), and each kernel's time summed over the
+    pyramid's levels beside the plain versions' and the bound: each input
+    read once and each output written once, or the operations (a
+    correlation of k taps is k products and k - 1 sums)."""
+    from flowdenoising_tpu_torch.config import FlowConfig
+    from flowdenoising_tpu_torch.ops import farneback as F
+    from flowdenoising_tpu_torch.ops.blur import (
+        _sep_correlate, smooth_kernel_for_level)
+    from flowdenoising_tpu_torch.ops.cuda.polyexp import expand_level, pyr_blur
+
+    cfg = FlowConfig()
+    n, sigma = cfg.poly_n, cfg.poly_sigma
+    taps = 2 * n + 1
+    x = t(r.normal(size=(planes, size, size)) * 50 + 100)
+    images = F.image_pyramid(x, cfg)
+    sums = {k: dict(ms=0.0, plain_ms=0.0, nbytes=0.0, flops=0.0)
+            for k in ("polyexp", "pyr_blur")}
+
+    def record(name, what, fn, plain, nbytes, flops):
+        out, ref = fn(), plain()
+        torch.cuda.synchronize()
+        require(torch.equal(out, ref), f"{name} {what}: not bit-identical to "
+                f"its plain version (max abs err "
+                f"{float((out - ref).abs().max())})")
+        del out, ref
+        ms = cuda_ms(fn)
+        pms = cuda_ms(plain, reps=3)
+        bms, by = bound(nbytes, flops)
+        print(f"[3 kernels] {name} {what}: bit-identical, kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+        for key, v in (("ms", ms), ("plain_ms", pms), ("nbytes", nbytes),
+                       ("flops", flops)):
+            sums[name][key] += v
+
+    for k, img in enumerate(images):
+        b, h, w = img.shape
+        px = b * h * w
+        expansion = 9 * (2 * taps - 1) + 9      # nine correlations, combinations
+        if k == 0:
+            blur = smooth_kernel_for_level(0, cfg.pyr_scale)
+            record("polyexp", f"level 0 ({b},{h},{w}) with its "
+                   f"{len(blur)}-tap pre-blur",
+                   lambda: expand_level(x, n, sigma, blur=blur),
+                   lambda: F.poly_expand(_sep_correlate(x, blur, blur, "reflect"),
+                                         n, sigma, channel_first=True),
+                   4 * 6 * px, (2 * (2 * len(blur) - 1) + expansion) * px)
+            continue
+        ktaps = smooth_kernel_for_level(k, cfg.pyr_scale)
+        full = x.numel()
+        record("pyr_blur", f"level {k}'s {len(ktaps)}-tap pre-blur "
+               f"({planes},{size},{size})", lambda: pyr_blur(x, ktaps),
+               lambda: _sep_correlate(x, ktaps, ktaps, "reflect"),
+               4 * 2 * full, 2 * (2 * len(ktaps) - 1) * full)
+        record("polyexp", f"level {k} ({b},{h},{w})",
+               lambda: expand_level(img, n, sigma),
+               lambda: F.poly_expand(img, n, sigma, channel_first=True),
+               4 * 6 * px, expansion * px)
+    res = {}
+    for name, v in sums.items():
+        bms, by = bound(v["nbytes"], v["flops"])
+        res[name] = dict(max_abs_err=0.0, ms=v["ms"], plain_ms=v["plain_ms"],
+                         bound_ms=bms, bound_by=by, library_ms=None)
+        print(f"[3 kernels] {name} over the {len(images)}-level pyramid of "
+              f"({planes},{size},{size}): kernel {v['ms']:.4f} ms, plain "
+              f"{v['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}); no single "
+              "library call", flush=True)
     return res
 
 
@@ -1129,7 +1210,9 @@ def expected_launches(shape, cfg, windows=(1, 1, 1), passes=(0, 1, 2)) -> dict:
     its planner plans each level of every solve, K-sample-split a tap in
     solve mode and K-compose-run-split a pass in compose mode, and no other
     kernel; a denoise never launches the per-tap K-compose, K-um or K-uf.
-    Pass i runs once per window,
+    A float32 pass builds its expansion pyramid in K-polyexp, one launch a
+    level, and K-pyr-blur, one a level past the first (a bf16 pass in the
+    plain chain).  Pass i runs once per window,
     ``windows[i]`` times (slabs, or a stream's windows with the recomputed
     tail); only the passes in ``passes`` run (a resumed run)."""
     from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
@@ -1155,6 +1238,9 @@ def expected_launches(shape, cfg, windows=(1, 1, 1), passes=(0, 1, 2)) -> dict:
         sizes = pyramid_sizes(h, w, f.clamped_levels(h, w), f.pyr_scale)
         solves = ((1 if f.symmetric_adjacent else 2) if f.tap_mode == "compose"
                   else n_taps) * windows[i]
+        if f.dtype == "float32":
+            n["polyexp"] += len(sizes) * windows[i]
+            n["pyr_blur"] += (len(sizes) - 1) * windows[i]
         if split_route(f):
             n["umuf_split"] += solves * sum(
                 len(plan_split(hk, wk, f.winsize, f.iterations).launches)
@@ -1234,7 +1320,9 @@ def wall_s(fn) -> float:
 def kernel_family(name: str) -> str:
     """A device kernel's family, for the device-time split."""
     low = name.lower()
-    for key, family in (("umuf_split_kernel", "K-umuf-split"),
+    for key, family in (("polyexp_kernel", "K-polyexp"),
+                        ("pyr_blur_kernel", "K-pyr-blur"),
+                        ("umuf_split_kernel", "K-umuf-split"),
                         ("sample_split_kernel", "K-sample-split"),
                         ("compose_run_split_kernel", "K-compose-run-split"),
                         ("compose_run_kernel", "K-compose-run"),
@@ -1911,7 +1999,8 @@ def phase_api(dev, size: int, seed: int, card: str) -> None:
               "bit the CPU plain version (displace_sample_xla)", flush=True)
     del src16, f16, u16, v16, f16_cl
     flows = [launched(f"farneback_flow of {kind}",
-                      lambda a=a, b=b: farneback_flow(a, b), {"umuf"})
+                      lambda a=a, b=b: farneback_flow(a, b),
+                      {"umuf", "polyexp", "pyr_blur"})
              for kind, a, b in (("tensors", vol[1:9], vol[:8]),
                                 ("NumPy inputs", noisy[1:9], noisy[:8]))]
     same("farneback_flow of NumPy inputs against tensors", flows[1][0], flows[0][0])
@@ -1950,6 +2039,15 @@ def phase_api(dev, size: int, seed: int, card: str) -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with device_trace(tdir) as state:
+            # after the smoke's earlier phases the profiler has lost the
+            # device records of the first ~1.5 ms after its start (the first
+            # pass's pad copy, gather and K-polyexp); a few throwaway
+            # kernels and 0.1 s put that window before the denoise
+            warm = torch.zeros(1, device=dev)
+            for _ in range(8):
+                warm.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.1)
             with annotate("api_phase"):
                 denoise(vol, cfg)
                 torch.cuda.synchronize()
@@ -1964,22 +2062,34 @@ def phase_api(dev, size: int, seed: int, card: str) -> None:
     fams = Counter(kernel_family(e.get("name", "")) for e in events
                    if e.get("cat") == "kernel")
     want = expected_launches(clean.shape, cfg)
-    for family, form in (("K-umuf", "umuf"), ("K-sample", "sample")):
+    counted = (("K-umuf", "umuf"), ("K-sample", "sample"),
+               ("K-polyexp", "polyexp"), ("K-pyr-blur", "pyr_blur"))
+    # the runtime launches whose correlation id reached no device event, to
+    # tell a launch the trace lost from one the program did not make
+    reached = {e.get("args", {}).get("correlation") for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    lost = [(e["name"], e["ts"]) for e in events
+            if e.get("cat") == "cuda_runtime" and "Launch" in e.get("name", "")
+            and e.get("args", {}).get("correlation") not in reached]
+    for family, form in counted:
         require(fams[family] == want[form] == launches[form],
                 f"device_trace: {fams[family]} {family} kernel events, "
-                f"{launches[form]} launches counted, {want[form]} expected")
+                f"{launches[form]} launches counted, {want[form]} expected; "
+                f"runtime launches with no device event in the trace: "
+                f"{len(lost)} {lost[:4]}")
     others = {f: n for f, n in fams.items() if f.startswith("K-")
-              and f not in ("K-umuf", "K-sample")}
+              and f not in dict(counted)}
     require(not others, f"device_trace: other kernels in the trace: {others}")
     marks = [e for e in events if e.get("name") == "api_phase"]
     require(marks, "device_trace: the annotate range is not in the trace")
     print(f"[9 api] device_trace of a warm solve denoise ({tag}): trace "
-          f"{nbytes} B, {fams['K-umuf']} K-umuf and {fams['K-sample']} K-sample "
+          f"{nbytes} B, {fams['K-umuf']} K-umuf, {fams['K-sample']} K-sample, "
+          f"{fams['K-polyexp']} K-polyexp and {fams['K-pyr-blur']} K-pyr-blur "
           f"kernel events = the launches counted and expected; annotate range "
           f"in it ({len(marks)} events: "
           f"{sorted({e.get('cat') for e in marks})}); wall {plain_s:.3f} s "
-          f"without the trace, {traced_s:.3f} s with it (export included)",
-          flush=True)
+          f"without the trace, {traced_s:.3f} s with it (export and the 0.1 s "
+          f"wait included)", flush=True)
 
 
 def host_rss() -> int | None:
@@ -2586,7 +2696,8 @@ def main() -> int:
     # the bf16 pass with no bound, K-um and K-uf from the auto_v2 CLI run
     # that falls back to the reconstruction; the packed forms from the bf16
     # paths (K-um-bf16 from solve_bf16's reconstruction); K-sample-split and
-    # K-compose-run-split from the no-bound solve and fast paths
+    # K-compose-run-split from the no-bound solve and fast paths; K-polyexp
+    # and K-pyr-blur (the JAX package's pyramid is XLA) from solve mode
     kernels = {
         "umuf": ("flowdenoising_tpu_torch/csrc/umuf.cu",
                  "flowdenoising_tpu/ops/pallas/umuf.py:87", "solve"),
@@ -2618,6 +2729,10 @@ def main() -> int:
         "compose_run_split": ("flowdenoising_tpu_torch/csrc/compose.cu",
                               "flowdenoising_tpu/ops/pallas/compose.py:141",
                               "fast_nobound"),
+        "polyexp": ("flowdenoising_tpu_torch/csrc/polyexp.cu",
+                    "flowdenoising_tpu/ops/farneback.py:318", "solve"),
+        "pyr_blur": ("flowdenoising_tpu_torch/csrc/polyexp.cu",
+                     "flowdenoising_tpu/ops/farneback.py:318", "solve"),
     }
     print(card)
     # "paths": the launches of every phase 4 path (the reconstruction as

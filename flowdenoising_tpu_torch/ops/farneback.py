@@ -57,6 +57,8 @@ import torch
 from flowdenoising_tpu_torch.config import FlowConfig
 from flowdenoising_tpu_torch.ops.blur import (
     _sep_correlate, box_blur_sum, corr1d, rounded, smooth_kernel_for_level)
+from flowdenoising_tpu_torch.ops.cuda.polyexp import (
+    pyramid as kernel_pyramid, takes as kernel_pyramid_takes)
 from flowdenoising_tpu_torch.ops.cuda.uf import update_flow
 from flowdenoising_tpu_torch.ops.cuda.um import update_matrices
 from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
@@ -427,8 +429,13 @@ def image_pyramid(img: torch.Tensor, cfg: FlowConfig) -> list[torch.Tensor]:
 
 def polyexp_pyramid(img: torch.Tensor, cfg: FlowConfig) -> list[torch.Tensor]:
     """Per-level expansions (..., 5, h_k, w_k) of (..., H, W) images, in
-    the profiler range ``EXPANSION_RANGE``."""
+    the profiler range ``EXPANSION_RANGE``: on a CUDA float32 stack in the
+    kernels K-pyr-blur and K-polyexp (``ops.cuda.polyexp.pyramid``, bit for
+    bit the plain chain), else ``poly_expand`` of each ``image_pyramid``
+    level, the kernels' plain version."""
     with span(EXPANSION_RANGE):
+        if kernel_pyramid_takes(img):
+            return kernel_pyramid(img, cfg)
         return [poly_expand(i, cfg.poly_n, cfg.poly_sigma,
                             channel_first=True).contiguous()
                 for i in image_pyramid(img, cfg)]

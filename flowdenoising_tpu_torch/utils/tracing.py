@@ -31,7 +31,8 @@ check and nothing else.  The names:
   query ``cudaMemGetInfo``: ``input``
   (an array taken to the device, ``ops.device.as_tensors``),
   ``pad_index`` (``core.axis_filter.pad_stack``), ``blur_index``
-  (``ops.blur.corr1d``), ``resize_matrix`` (each of a resize's two weight
+  (``ops.blur.corr1d``: the pyramid's plain chain, on a CPU or bfloat16
+  stack, and the presmooth blur), ``resize_matrix`` (each of a resize's two weight
   matrices), ``mem_info`` (``core.memory.device_budget``), ``pad_fill``
   (the MEAN boundary's fill value from the host).  On the card one span is
   one drain, so a trace's count of them is the count of drains.

@@ -591,3 +591,115 @@ def test_resize_gives_a_plane_the_same_bits_in_any_batch(dev):
     for a in (0, 871):
         torch.testing.assert_close(resize_linear(flow[a:a + 153], (512, 1024)),
                                    whole[a:a + 153], atol=0, rtol=0)
+
+
+def _plain_pyramid(img, cfg):
+    return [F.poly_expand(i, cfg.poly_n, cfg.poly_sigma, channel_first=True)
+            for i in F.image_pyramid(img, cfg)]
+
+
+@pytest.mark.parametrize("b", [1, 17])
+@pytest.mark.parametrize("h,w", [(1, 1), (3, 5), (8, 1030), (40, 261),
+                                 (96, 80), (184, 630), (165, 1024)])
+def test_polyexp_pyramid_kernels_equal_the_plain_pyramid(dev, b, h, w):
+    # levels 0-3 with min_size 1, so that narrow planes have levels too and
+    # planes narrower than the 19-tap blur and the 11-tap expansion reflect
+    # and replicate past their width
+    r = np.random.default_rng(h * w + b)
+    x = _t(r.normal(size=(b, h, w)) * 50 + 100, dev)
+    for levels in range(4):
+        cfg = FlowConfig(levels=levels, min_size=1)
+        n = cfg.clamped_levels(h, w) + 1
+        before = dict(K.LAUNCHES)
+        out = F.polyexp_pyramid(x, cfg)
+        assert K.LAUNCHES == {**before, "polyexp": before["polyexp"] + n,
+                              "pyr_blur": before["pyr_blur"] + n - 1}
+        ref = _plain_pyramid(x, cfg)
+        torch.cuda.synchronize()
+        assert len(out) == len(ref) == n
+        for o, rf in zip(out, ref):
+            assert o.is_contiguous() and torch.equal(o, rf), (levels, o.shape)
+
+
+def test_polyexp_kernels_take_leading_dims_and_poly_sigma(dev):
+    r = np.random.default_rng(7)
+    x = _t(r.normal(size=(2, 3, 70, 45)) * 50, dev)
+    cfg = FlowConfig(levels=2, min_size=8, poly_sigma=1.5)
+    before = K.LAUNCHES["polyexp"]
+    out = F.polyexp_pyramid(x, cfg)
+    assert K.LAUNCHES["polyexp"] == before + 3
+    for o, rf in zip(out, _plain_pyramid(x, cfg)):
+        assert o.shape[:3] == (2, 3, 5) and torch.equal(o, rf)
+
+
+@pytest.mark.parametrize("poly_n", [1, 2, 3, 7, 300])
+def test_polyexp_kernels_take_any_poly_n(dev, poly_n):
+    # every n but 5 runs through device memory; 300 is 601 taps, two chunks
+    # of correlation launches, wider than the planes
+    r = np.random.default_rng(poly_n)
+    x = _t(r.normal(size=(3, 70, 45)) * 50 + 100, dev)
+    cfg = FlowConfig(levels=2, min_size=8, poly_n=poly_n,
+                     poly_sigma=0.3 * poly_n + 0.5)
+    before = dict(K.LAUNCHES)
+    out = F.polyexp_pyramid(x, cfg)
+    assert K.LAUNCHES == {**before, "polyexp": before["polyexp"] + 3,
+                          "pyr_blur": before["pyr_blur"] + 2}
+    for o, rf in zip(out, _plain_pyramid(x, cfg)):
+        assert o.is_contiguous() and torch.equal(o, rf)
+
+
+def test_polyexp_kernels_take_pyramids_past_the_tile_blur(dev):
+    # levels 7 and 8 pre-blur with 319 and 639 taps: through device memory
+    x = _t(np.random.default_rng(8).normal(size=(2, 300, 300)) * 50, dev)
+    cfg = FlowConfig(levels=8, min_size=1)
+    before = dict(K.LAUNCHES)
+    out = F.polyexp_pyramid(x, cfg)
+    assert K.LAUNCHES == {**before, "polyexp": before["polyexp"] + 9,
+                          "pyr_blur": before["pyr_blur"] + 8}
+    ref = _plain_pyramid(x, cfg)
+    assert len(out) == len(ref) == 9
+    for o, rf in zip(out, ref):
+        assert torch.equal(o, rf), o.shape
+
+
+@pytest.mark.parametrize("ntaps", [1, 3, 19, 155, 235, 237, 319, 1025])
+def test_pyr_blur_kernel_equals_plain(dev, ntaps):
+    # 155 taps: a block above 48 KB of shared memory; 235: the smallest tile;
+    # from 237 through device memory, 1025 in three chunks a pass
+    from flowdenoising_tpu_torch.ops.blur import _sep_correlate
+    from flowdenoising_tpu_torch.ops.cuda.polyexp import pyr_blur
+    taps = np.exp(-np.linspace(-2, 2, ntaps) ** 2)
+    taps /= taps.sum()
+    x = _t(np.random.default_rng(ntaps).normal(size=(3, 37, 300)) * 50, dev)
+    before = K.LAUNCHES["pyr_blur"]
+    out = pyr_blur(x, taps)
+    assert K.LAUNCHES["pyr_blur"] == before + 1
+    assert torch.equal(out, _sep_correlate(x, taps, taps, "reflect"))
+
+
+def test_bf16_pyramid_takes_the_plain_chain_on_the_card(dev):
+    x = _t(np.random.default_rng(3).normal(size=(4, 64, 64)) * 50,
+           dev).to(torch.bfloat16)
+    cfg = FlowConfig(dtype="bfloat16")
+    before = dict(K.LAUNCHES)
+    out = F.polyexp_pyramid(x, cfg)
+    assert K.LAUNCHES == before
+    for o, rf in zip(out, _plain_pyramid(x, cfg)):
+        assert o.dtype == torch.bfloat16 and torch.equal(o, rf)
+
+
+def test_polyexp_wrappers_refuse_what_they_do_not_take(dev):
+    from flowdenoising_tpu_torch.ops.cuda.polyexp import expand_level, pyr_blur
+    x = torch.zeros(2, 16, 16, device=dev)
+    before = dict(K.LAUNCHES)
+    with pytest.raises(ValueError):
+        expand_level(x.to(torch.bfloat16), 5, 1.2)
+    with pytest.raises(ValueError):
+        expand_level(x, 0, 1.2)          # no Gram matrix to invert
+    with pytest.raises(ValueError):
+        expand_level(x, 5, 1.2, blur=np.ones(5) / 5)
+    with pytest.raises(ValueError):
+        pyr_blur(x.double(), np.ones(3) / 3)
+    with pytest.raises(ValueError):
+        pyr_blur(x, np.ones(4) / 4)
+    assert K.LAUNCHES == before

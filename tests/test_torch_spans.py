@@ -50,7 +50,9 @@ def reckon(shape, cfg: FilterConfig, cuda: bool, array_input: bool) -> dict:
     seeded by the tap before it within a run) or the adjacent flows once
     or twice (compose mode), every solve L + 1 levels with a resize
     between them and, where seeded, one to the coarsest level; a resize
-    copies two weight matrices.  On the CPU (``cuda`` false) the solves
+    copies two weight matrices.  On the card the float32 pyramid runs in
+    the kernels, which copy no index vector; on the CPU (``cuda`` false)
+    it runs the plain chain, whose correlations copy one each, the solves
     run the plain iteration, whose box sum is two more correlations an
     iteration, and nothing queries the device's memory."""
     f = cfg.flow
@@ -77,10 +79,9 @@ def reckon(shape, cfg: FilterConfig, cuda: bool, array_input: bool) -> dict:
         want[tracing.RESIZE_RANGE] += resizes
         want[DRAIN + "pad_index"] += 1
         want[DRAIN + "mem_info"] += int(cuda)
-        want[DRAIN + "blur_index"] += BLUR_INDEX_A_LEVEL * (levels + 1)
         if not cuda:
             want[DRAIN + "blur_index"] += (
-                2 * f.iterations * solves * (levels + 1))
+                BLUR_INDEX_A_LEVEL + 2 * f.iterations * solves) * (levels + 1)
         want[DRAIN + "resize_matrix"] += 2 * resizes
     return want
 
