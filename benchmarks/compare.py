@@ -35,12 +35,19 @@ def readings(out: np.ndarray, ref: torch.Tensor) -> dict:
             "rms_err": float(d.square().mean().sqrt()) / float(ref.std())}
 
 
-def judge(outputs: list, ref: torch.Tensor, limits: dict):
-    """(worst reading of each number over ``outputs``, outputs failed)."""
+def failures(outputs: list, ref: torch.Tensor, limits: dict):
+    """(worst reading of each number over ``outputs``, whether each output
+    failed)."""
     worst = dict.fromkeys(NUMBERS, 0.0)
-    failed = 0
+    bad = []
     for out in outputs:
         r = readings(out, ref)
-        failed += any(r[k] > limits[k] for k in NUMBERS)
+        bad.append(any(r[k] > limits[k] for k in NUMBERS))
         worst = {k: max(worst[k], r[k]) for k in NUMBERS}
-    return worst, failed
+    return worst, bad
+
+
+def judge(outputs: list, ref: torch.Tensor, limits: dict):
+    """(worst reading of each number over ``outputs``, outputs failed)."""
+    worst, bad = failures(outputs, ref, limits)
+    return worst, sum(bad)

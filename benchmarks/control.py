@@ -8,9 +8,11 @@ of that seed samples, denoised by the program and by the plain reference,
 and the compared numbers of ``benchmarks/compare.py`` between them (the
 lower readings); for the first ``--control`` seeds also the
 lower-precision control -- the reference with TF32 matrix products --
-against the reference (the upper readings).  One JSON line a seed, then a
-summary line: the largest program reading and the smallest control reading
-of each number.  Not run by the benchmark's runs.
+against the reference (the upper readings).  Both sides of the reference
+run at the bounds the plain probe picks for an ``auto`` cell, and the line
+names the program's pick beside it.  One JSON line a seed, then a summary
+line: the largest program reading and the smallest control reading of each
+number.  Not run by the benchmark's runs.
 """
 
 import argparse
@@ -32,7 +34,7 @@ def main(argv=None) -> int:
     import torch
 
     from benchmarks import compare, spec, volumes
-    from benchmarks.run import Program, reference
+    from benchmarks.run import Program, plain_flow, reference
 
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
@@ -49,14 +51,20 @@ def main(argv=None) -> int:
         t_program = time.perf_counter() - t
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        ref = reference(cell, vol, device)
+        flow = plain_flow(cell, vol, device)
+        ref = reference(cell, vol, device, flow=flow)
         t_ref = time.perf_counter() - t
         line = {"seed": seed, "index": index, "program_s": t_program,
                 "reference_s": t_ref,
                 "program": compare.readings(out, ref)}
+        if program.picks:
+            line["picks"] = {"program": program.picks[-1],
+                             "plain": (flow["max_displacement"],
+                                       flow["adjacent_displacement"])}
         del out
         if i < args.control:
-            ctl = reference(cell, vol, device, tf32=True).cpu().numpy()
+            ctl = reference(cell, vol, device, tf32=True,
+                            flow=flow).cpu().numpy()
             line["control"] = compare.readings(ctl, ref)
             del ctl
         del ref

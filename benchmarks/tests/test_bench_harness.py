@@ -1,7 +1,7 @@
 """The benchmark harness on the CPU: its imports, its files found by name,
-its window arithmetic, its work counts, its layer rule, its reference
-against the port's CPU path, and ``correct`` coming out false for a
-broken program and for the lower-precision control.
+its window arithmetic, its work counts, its layer rule, its reference and
+its plain auto-bound probe against the port's CPU path, and ``correct``
+coming out false for a broken program and for the lower-precision control.
 
     python -m pytest -p no:cacheprovider benchmarks/tests -q
 """
@@ -22,9 +22,9 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 from benchmarks import spec, trace, volumes, work  # noqa: E402
-from benchmarks.reference import plain  # noqa: E402
+from benchmarks.reference import autodisp, plain  # noqa: E402
 from benchmarks.run import (  # noqa: E402
-    FORBIDDEN, Program, closed_loop, reference, run)
+    FORBIDDEN, Program, cache_bytecode, closed_loop, reference, run)
 
 HERE = ROOT / "benchmarks"
 CPU = torch.device("cpu")
@@ -146,6 +146,16 @@ def test_the_window_counts_every_volume_and_all_its_time():
     assert len(window.spans) == 4
 
 
+def test_bytecode_is_kept_in_the_checkout(tmp_path, monkeypatch):
+    # an environment that forbids writing bytecode recompiled torch on
+    # every start; the run keeps it at a fixed path inside the checkout
+    monkeypatch.setattr(sys, "pycache_prefix", None)
+    monkeypatch.setattr(sys, "dont_write_bytecode", True)
+    cache_bytecode(tmp_path)
+    assert sys.pycache_prefix == str(tmp_path / "build" / "pycache")
+    assert not sys.dont_write_bytecode
+
+
 FLOW = {"levels": 3, "winsize": 5, "iterations": 3, "poly_n": 5,
         "poly_sigma": 1.2, "pyr_scale": 0.5, "min_size": 32,
         "use_initial_flow": True, "max_displacement": 8,
@@ -237,6 +247,31 @@ def test_the_layer_rule_and_the_idle_share():
     assert len(out["idle_gaps"]) <= trace.TOP
 
 
+def _probe_events():
+    """A probe ahead of the window's volume: the host span with an op in
+    it, the op's kernel and a ctypes K-umuf launch (no op) inside the
+    span's device mirror."""
+    E = trace.Event
+    return [E("bench.probe", False, 9_950, 9_990, thread=1),
+            E("aten::minimum", False, 9_955, 9_960, thread=1, corr=9),
+            E("bench.probe", True, 9_956, 9_985),
+            E("void at::native::vectorized_elementwise_kernel<4>(min)", True,
+              9_958, 9_966, linked=9),
+            E("void umuf_kernel<float>(float const*)", True, 9_970, 9_982)]
+
+
+def test_the_probe_layer_takes_what_the_probe_launched():
+    before = trace.Trace(_events(1), 1, _Cell())
+    t = trace.Trace(_events(1) + _probe_events(), 1, _Cell())
+    assert t.layer_ms(trace.PROBE_LAYER) == pytest.approx((8 + 12) * 1e-6)
+    assert before.layer_ms(trace.PROBE_LAYER) is None
+    for name in trace.LAYERS:
+        assert t.layer_ms(name) == before.layer_ms(name), name
+    assert spec.reader("probe.ms")(t) == pytest.approx(20e-6)
+    assert spec.reader("probe.wall_ms")(t) == pytest.approx(40e-6)
+    assert spec.reader("probe.wall_ms")(before) is None
+
+
 def test_a_roofline_share_is_unchanged_by_more_launches():
     one = spec.reader("tap_solve.roofline_pct")(trace.Trace(_events(1), 1,
                                                             _Cell()))
@@ -254,14 +289,20 @@ def tiny(workload: str, shape=(8, 64, 64)):
     return cell
 
 
-@pytest.mark.parametrize("workload", ["epfl.solve", "czii.compose"])
+@pytest.mark.parametrize("workload", ["epfl.solve", "czii.compose",
+                                      "czii.auto"])
 def test_the_reference_is_the_ports_cpu_path(workload):
+    from flowdenoising_tpu_torch.core.autodisp import (
+        resolve_auto_displacement)
     from flowdenoising_tpu_torch.core.pipeline import denoise
 
     cell = tiny(workload, (12, 64, 72))
     vol = volumes.volume(cell.config, 3, 0, CPU).numpy()
     ref = reference(cell, vol, CPU)
-    out = denoise(vol, Program(cell, CPU).cfg, device="cpu")
+    cfg = Program(cell, CPU).cfg
+    if cell.flow["max_displacement"] == "auto":
+        cfg = resolve_auto_displacement(vol, cfg, device="cpu")
+    out = denoise(vol, cfg, device="cpu")
     assert torch.equal(out, ref)
     assert not torch.equal(ref, torch.as_tensor(vol))
 
@@ -298,7 +339,8 @@ def _altered(program):
 
 
 @pytest.mark.parametrize("fault", [_unchanged, _half_left_out, _altered])
-@pytest.mark.parametrize("workload", ["epfl.solve", "czii.compose"])
+@pytest.mark.parametrize("workload", ["epfl.solve", "czii.compose",
+                                      "czii.auto"])
 def test_a_broken_program_is_not_correct(workload, fault):
     cell = tiny(workload)
     program = Program(cell, CPU)
@@ -306,6 +348,161 @@ def test_a_broken_program_is_not_correct(workload, fault):
     assert not result["correct"]
     assert result["failed"] >= 1
     assert any(v["value"] > v["limit"] for v in compared.values())
+
+
+def _drifting(p, shape, r, device):
+    """Blobs that translate ``speed`` px a Z slice along x, plus noise: at
+    the far tap distance 8 the motion is 16 px, past the fixed D 8."""
+    n, h, w = shape
+    pad = int(np.ceil(p["speed"] * n)) + 4
+    yy, xx = np.mgrid[:h, :w + pad]
+    base = np.zeros((h, w + pad))
+    for _ in range(int(p["blobs"])):
+        cy, cx = r.uniform(0, h), r.uniform(0, w + pad)
+        rad, amp = r.uniform(2, 5), r.uniform(50, 150)
+        base += amp * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2)
+                             / (2 * rad * rad))
+    vol = np.stack([base[:, int(round(z * p["speed"])):][:, :w]
+                    for z in range(n)])
+    vol += r.normal(0, p["noise"], vol.shape)
+    return torch.as_tensor(vol, dtype=torch.float32, device=device)
+
+
+DRIFT = {"generator": "drifting", "shape": [12, 64, 64], "speed": 2.0,
+         "blobs": 30, "noise": 4.0}
+
+
+@pytest.fixture
+def drifting(monkeypatch):
+    """``czii.auto`` on the drifting volumes."""
+    monkeypatch.setitem(volumes.GENERATORS, "drifting", _drifting)
+    cell = tiny("czii.auto")
+    cell.config["volume"] = dict(DRIFT)
+    return cell
+
+
+def _probes(vol, cell, monkeypatch):
+    """(the port's pick, the plain probe's, the port's curves, the plain
+    probe's) of ``vol``, every group of every probe call in order."""
+    from flowdenoising_tpu_torch.core import autodisp as port
+
+    curves = {"port": [], "plain": []}
+    runs = {"port": port._run_probe, "plain": autodisp.run_probe}
+
+    def recording(side):
+        def run_probe(groups, ladders, flow, device):
+            out = runs[side](groups, ladders, flow, device)
+            curves[side].append(out)
+            return out
+        return run_probe
+
+    monkeypatch.setattr(port, "_run_probe", recording("port"))
+    monkeypatch.setattr(autodisp, "run_probe", recording("plain"))
+    theirs = port.probe_displacement(vol, Program(cell, CPU).cfg,
+                                     device="cpu")
+    ours = autodisp.probe(vol, cell.config["sigma"], cell.flow, CPU)
+    return theirs, ours, curves["port"], curves["plain"]
+
+
+@pytest.mark.parametrize("seed", [1, 2, 2**31 + 7])
+@pytest.mark.parametrize("config", ["czii_184x630x630",
+                                    "epfl_ca1_165x768x1024", "drifting"])
+def test_the_plain_probe_is_the_ports(config, seed, monkeypatch):
+    monkeypatch.setitem(volumes.GENERATORS, "drifting", _drifting)
+    cell = tiny("czii.auto", (12, 64, 72))
+    if config == "drifting":
+        cell.config["volume"] = dict(DRIFT)
+    else:
+        cell.config["volume"] = {**json.loads(
+            (HERE / "configs" / f"{config}.json").read_text())["volume"],
+            "shape": [12, 64, 72]}
+    vol = volumes.volume(cell.config, seed, 0, CPU).numpy()
+    theirs, ours, port_curves, plain_curves = _probes(vol, cell, monkeypatch)
+    # bit for bit: every group's clamp-cost curve, base and identity error
+    assert plain_curves == port_curves and len(port_curves) >= 1
+    assert ours == theirs
+    if config == "drifting":
+        assert ours[0] > 8
+
+
+def test_the_plain_probes_constants_are_the_ports():
+    import inspect
+
+    from flowdenoising_tpu_torch.core import autodisp as port
+
+    assert (autodisp.D_LADDER, autodisp.ADJ_LADDER, autodisp.BENEFIT_TOL,
+            autodisp.N_PAIRS, autodisp.UNTRACKED_FRAC) == (
+        port._D_LADDER, port._ADJ_LADDER, port._BENEFIT_TOL, port._N_PAIRS,
+        port._UNTRACKED_FRAC)
+    extent = inspect.signature(port.probe_displacement).parameters[
+        "probe_extent"].default
+    assert autodisp.EXTENT == extent
+    for h, w in [(96, 96), (160, 512), (512, 160), (300, 280), (184, 630)]:
+        for e in (extent, 2 * extent):
+            assert autodisp.bucket(h, w, e) == port._bucket_shape(h, w, e)
+
+
+def _curves(far, adj):
+    """A probe whose every far group reads ``far`` and every adjacent group
+    ``adj``: (curve over the ladder, base, ident) of a clamp cost that
+    falls by ``step`` a rung to 0."""
+    def fake(groups, ladders, flow, device):
+        out = []
+        for ladder in ladders:
+            start, step, base, ident = far if ladder[0] == 4 else adj
+            out.append(([base + max(start - i * step, 0.0)
+                         for i in range(len(ladder))], base, ident))
+        return out
+    return fake
+
+
+@pytest.mark.parametrize("far,adj", [
+    ((4.3, 0.9, 23.0, 31.0), (1.0, 0.5, 2.0, 9.0)),    # pick by the benefit
+    ((0.9, 0.2, 1.0, 10.0), (0.0, 0.0, 9.6, 10.0)),    # adjacent untracked
+    ((0.0, 0.0, 9.5, 10.0), (0.2, 0.1, 2.0, 9.0)),     # far untracked
+    ((0.16, 0.0, 1.0, 9.0), (0.17, 0.0, 1.0, 9.0)),    # at the tolerance
+    ((9.0, 0.1, 1.0, 20.0), (9.0, 0.1, 1.0, 20.0)),    # past the ladders
+])
+def test_the_plain_probe_picks_as_the_port_picks(far, adj, monkeypatch):
+    from flowdenoising_tpu_torch.core import autodisp as port
+
+    cell = tiny("czii.auto", (12, 40, 48))
+    vol = volumes.volume(cell.config, 1, 0, CPU).numpy()
+    monkeypatch.setattr(port, "_run_probe", _curves(far, adj))
+    monkeypatch.setattr(autodisp, "run_probe", _curves(far, adj))
+    assert autodisp.probe(vol, cell.config["sigma"], cell.flow, CPU) == \
+        port.probe_displacement(vol, Program(cell, CPU).cfg, device="cpu")
+
+
+def _probe_skipped(program):
+    # the CLI's fixed default D 8 and FlowConfig's adjacent 4, no probe
+    program.resolve = lambda vol, cfg, device=None: cfg
+    return program
+
+
+def test_a_sound_auto_run_is_correct_and_names_both_picks(drifting, capsys):
+    result, compared = run(drifting, 2**31 + 5, 0.0, False, CPU, 0.0)
+    assert result["correct"] and result["failed"] == 0
+    assert compared["pick_gap"] == {"value": 0, "limit": 0}
+    assert compared["max_err"]["value"] == 0.0
+    err = capsys.readouterr().err
+    assert "the program's [(" in err and "the plain probe's (" in err
+
+
+def test_a_program_that_skips_the_probe_is_not_correct(drifting):
+    program = Program(drifting, CPU)
+    seed = 2**31 + 5
+    vol = volumes.pool(drifting.config, drifting.traffic, seed, CPU)[
+        volumes.sampled(drifting.traffic, seed)]
+    assert autodisp.probe(vol, drifting.config["sigma"], drifting.flow,
+                          CPU)[0] > 8
+    result, compared = run(drifting, seed, 0.0, False, CPU, 0.0,
+                           _probe_skipped(program))
+    assert not result["correct"]
+    assert result["failed"] >= 1
+    assert compared["pick_gap"]["value"] > 0
+    assert any(compared[k]["value"] > compared[k]["limit"]
+               for k in ("max_err", "rms_err"))
 
 
 def test_volumes_repeat_from_the_seed_and_differ_across_the_pool():
@@ -325,7 +522,8 @@ def test_volumes_repeat_from_the_seed_and_differ_across_the_pool():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("workload", ["epfl.solve", "czii.compose",
-                                      "czii.solve", "epfl.compose"])
+                                      "czii.solve", "epfl.compose",
+                                      "czii.auto"])
 def test_the_tf32_control_is_not_correct_on_the_card(workload):
     # at the cell's own size: TF32's error grows with the volume, and at
     # a cut size a control can read under the cell's limits

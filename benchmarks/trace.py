@@ -1,18 +1,21 @@
 """The traced window read into layers: one frozen rule puts every device
 event into exactly one layer.
 
-1. The port's kernels that the cells run, by symbol: ``umuf_kernel`` to
+1. Events launched inside the harness's ``bench.probe`` span (the CLI's
+   auto-bound probe, ahead of a volume's denoise) to the probe, whatever
+   their kernel: by the host op that launched each (its thread and start
+   inside the span), or, for an event launched outside any torch op, as a
+   ctypes launch is, by the span's device span.
+2. The port's kernels that the cells run, by symbol: ``umuf_kernel`` to
    the tap solve, ``sample_kernel`` to the tap warp,
    ``compose_run_kernel`` to the compose pass.  (The benchmark PR that
    adds a cell of another kernel form adds its pattern.)
-2. Then matrix-product kernels (gemm, cutlass, xmma, nvjet) to the resize.
-3. Then events whose torch op was launched inside the program's
-   ``OFE_expansion`` range to the expansion pyramid (an event launched
-   outside any torch op, as a ctypes launch is, by the range's device
-   span).
-4. Then memcpy, memset, copies and index gathers (the pads and
+3. Then matrix-product kernels (gemm, cutlass, xmma, nvjet) to the resize.
+4. Then events launched inside the program's ``OFE_expansion`` range to
+   the expansion pyramid, tested as in rule 1.
+5. Then memcpy, memset, copies and index gathers (the pads and
    transposes) to the pipeline.
-5. The rest is other elementwise work (casts, flow scaling, the tap FMA).
+6. The rest is other elementwise work (casts, flow scaling, the tap FMA).
 
 Profiler ranges mirrored on the device (a device event with the name of a
 host event) span kernels and are not work.  Busy time is the union of the
@@ -28,6 +31,7 @@ EXPANSION_RANGE = "OFE_expansion"
 WINDOW_SPAN = "bench.window"
 VOLUME_SPAN = "bench.denoise"
 TO_HOST_SPAN = "bench.to_host"
+PROBE_SPAN = "bench.probe"
 
 KERNELS = (
     (re.compile(r"\bumuf_kernel\b"), "tap solve"),
@@ -36,8 +40,10 @@ KERNELS = (
 )
 MATMUL = ("gemm", "cutlass", "xmma", "nvjet")
 PIPELINE = ("memcpy", "memset", "copy", "index")
+# the layers of the program's denoise, by rules 2-6; rule 1's apart
 LAYERS = ("tap solve", "tap warp", "compose pass", "resize",
           "expansion pyramid", "pipeline", "other elementwise")
+PROBE_LAYER = "probe"
 TOP = 10
 
 
@@ -92,24 +98,30 @@ class Trace:
         self.lo, self.hi = window[0].start, window[0].end
         self.thread = window[0].thread
         ops = {e.corr: e for e in host if e.corr > 0 and not e.linked}
-        spans = [(e.thread, e.start, e.end) for e in host
-                 if e.name == EXPANSION_RANGE]
-        device_spans = [(e.start, e.end) for e in events
-                        if e.device and e.name == EXPANSION_RANGE]
 
-        def in_expansion(ev: Event) -> bool:
-            op = ops.get(ev.linked)
-            if op is not None:
-                return any(t == op.thread and lo <= op.start <= hi
-                           for t, lo, hi in spans)
-            return any(lo <= ev.start <= hi for lo, hi in device_spans)
+        def launched_in(name: str):
+            """Whether a device event was launched inside range ``name``."""
+            spans = [(e.thread, e.start, e.end) for e in host
+                     if e.name == name]
+            device_spans = [(e.start, e.end) for e in events
+                            if e.device and e.name == name]
 
+            def test(ev: Event) -> bool:
+                op = ops.get(ev.linked)
+                if op is not None:
+                    return any(t == op.thread and lo <= op.start <= hi
+                               for t, lo, hi in spans)
+                return any(lo <= ev.start <= hi for lo, hi in device_spans)
+            return test
+
+        in_probe = launched_in(PROBE_SPAN)
+        in_expansion = launched_in(EXPANSION_RANGE)
         self.work = [e for e in events if e.device and e.name not in names
                      and e.end > self.lo and e.start < self.hi]
-        self.layer_ns = dict.fromkeys(LAYERS, 0)
-        self.layer_count = dict.fromkeys(LAYERS, 0)
+        self.layer_ns = dict.fromkeys((PROBE_LAYER,) + LAYERS, 0)
+        self.layer_count = dict.fromkeys((PROBE_LAYER,) + LAYERS, 0)
         for e in self.work:
-            name = layer(e, in_expansion)
+            name = layer(e, in_probe, in_expansion)
             self.layer_ns[name] += e.end - e.start
             self.layer_count[name] += 1
         self.busy = union((max(e.start, self.lo), min(e.end, self.hi))
@@ -170,8 +182,10 @@ class Trace:
                 "idle_gaps": top(self.idle_by_host())}
 
 
-def layer(e: Event, in_expansion) -> str:
+def layer(e: Event, in_probe, in_expansion) -> str:
     """The rule above for one device event."""
+    if in_probe(e):
+        return PROBE_LAYER
     for pattern, name in KERNELS:
         if pattern.search(e.name):
             return name
