@@ -13,9 +13,15 @@ lower-precision control (TF32 products, as a CUDA card gives them with
 TF32 allowed; on the CPU, which has no TF32, the operands are rounded to
 TF32's 10-bit mantissa before an IEEE product).
 
-The tap solves run over blocks of at most ``block`` planes at a time, so
-that the plain chain's temporaries fit beside each other on one card; a
-plane's flow does not depend on the planes solved with it.
+Each pass runs over windows of output planes, each window built from the
+unpadded pass volume with its 2 ks2 halo planes taken modulo N and its own
+expansion pyramid, within ``WINDOW_PIXELS`` pixels a window; the tap
+solves run over blocks of at most ``BLOCK`` planes, within ``PIXELS``
+pixels a block.  So a full-frame volume fits one card beside its pass
+input and output (1065 x 1536 x 2048 peaked at 58.7 GB on an H100 80GB
+HBM3), and the results are those of whole passes: a plane's pyramid,
+flows and warps depend only on the planes it is paired with, never on the
+planes computed beside it.
 """
 
 from __future__ import annotations
@@ -35,8 +41,13 @@ _SMALL_GAUSSIAN = {
 }
 # OpenCV Farneback's border down-weighting ramp (FarnebackUpdateMatrices).
 _BORDER_RAMP = (0.14, 0.14, 0.4472, 0.4472, 0.4472)
-# Planes a tap solve holds at once.
+# Planes a tap solve holds at once, at most.
 BLOCK = 128
+# Pixels of the planes a tap solve holds at once: BLOCK planes of 768 x 1024.
+PIXELS = 96 << 20
+# Pixels of a pass window's planes, its halo included: every pass of the
+# benchmark's cells in one window (181 planes of 768 x 1024 the largest).
+WINDOW_PIXELS = 136 << 20
 
 
 def gaussian_taps(sigma: float, truncate: float = 4.0) -> np.ndarray:
@@ -397,18 +408,35 @@ def solve(r0_levels, r1_levels, flow: dict, d: int | None, rs: Resizer,
 # ---- the passes and the pipeline
 
 
-def pad_wrap(vol: torch.Tensor, pad: int) -> torch.Tensor:
-    """Axis 0 padded by ``pad`` slices a side, indices taken modulo N."""
-    idx = np.arange(-pad, vol.shape[0] + pad) % vol.shape[0]
+def block_planes(h: int, w: int, pixels: int = PIXELS) -> int:
+    """Planes of h x w a tap solve holds at once: ``BLOCK`` at most, and
+    within ``pixels`` where more than one plane would pass it."""
+    return min(BLOCK, max(1, pixels // (h * w)))
+
+
+def windows(n: int, h: int, w: int, ks2: int,
+            pixels: int = WINDOW_PIXELS) -> list:
+    """(start, stop) of each window of a pass's ``n`` output planes of
+    h x w: as many as fit ``pixels`` with their 2 ks2 halo planes (one at
+    least); the last may be short."""
+    size = max(1, pixels // (h * w) - 2 * ks2)
+    return [(a, min(a + size, n)) for a in range(0, n, size)]
+
+
+def window_stack(vol: torch.Tensor, start: int, stop: int,
+                 ks2: int) -> torch.Tensor:
+    """Planes ``start - ks2 .. stop + ks2`` of ``vol`` along axis 0,
+    indices taken modulo N (the WRAP boundary)."""
+    idx = np.arange(start - ks2, stop + ks2) % vol.shape[0]
     return vol.index_select(0, torch.as_tensor(idx, device=vol.device))
 
 
 def solve_pass(padded: torch.Tensor, taps: np.ndarray, flow: dict,
                rs: Resizer, block: int = BLOCK) -> torch.Tensor:
-    """Solve mode: for each tap (centre, then -1 .. -ks2, then +1 ..
-    +ks2) the flow from every output slice to its neighbour, seeded by the
-    previous tap's, the neighbour warped by it and added with the tap's
-    weight."""
+    """Solve mode over a stack of output slices and their ks2 halo slices
+    a side: for each tap (centre, then -1 .. -ks2, then +1 .. +ks2) the
+    flow from every output slice to its neighbour, seeded by the previous
+    tap's, the neighbour warped by it and added with the tap's weight."""
     ks2 = len(taps) // 2
     n = padded.shape[0] - 2 * ks2
     d = flow["max_displacement"]
@@ -428,11 +456,11 @@ def solve_pass(padded: torch.Tensor, taps: np.ndarray, flow: dict,
 
 def compose_pass(padded: torch.Tensor, taps: np.ndarray, flow: dict,
                  rs: Resizer, block: int = BLOCK) -> torch.Tensor:
-    """Compose mode: the flows between adjacent slices, both directions,
-    at the bound min(D, adjacent_displacement); the flow to the tap at
-    distance j composed outward, F_j = F_{j-1} + warp(link, F_{j-1}),
-    and the neighbour warped by F_j added with the tap's weight; each run
-    starts from zero flow."""
+    """Compose mode over a stack as ``solve_pass``'s: the flows between
+    the stack's adjacent slices, both directions, at the bound min(D,
+    adjacent_displacement); the flow to the tap at distance j composed
+    outward, F_j = F_{j-1} + warp(link, F_{j-1}), and the neighbour warped
+    by F_j added with the tap's weight; each run starts from zero flow."""
     ks2 = len(taps) // 2
     n = padded.shape[0] - 2 * ks2
     d = flow["max_displacement"]
@@ -468,11 +496,29 @@ def compose_pass(padded: torch.Tensor, taps: np.ndarray, flow: dict,
 LAYOUTS = [(0, 1, 2), (1, 0, 2), (2, 0, 1)]
 
 
+def windowed_pass(vol: torch.Tensor, taps: np.ndarray, flow: dict,
+                  rs: Resizer, run, pixels: int,
+                  window_pixels: int) -> torch.Tensor:
+    """``run`` (``solve_pass`` or ``compose_pass``) along axis 0 of the
+    (N, H, W) ``vol``, a window of output planes at a time (``windows``),
+    each written into one (N, H, W) float32 output."""
+    n, h, w = vol.shape
+    ks2 = len(taps) // 2
+    block = block_planes(h, w, pixels)
+    out = torch.empty_like(vol)
+    for a, b in windows(n, h, w, ks2, window_pixels):
+        out[a:b] = run(window_stack(vol, a, b, ks2), taps, flow, rs, block)
+    return out
+
+
 def denoise(vol, sigma, flow: dict, tap_mode: str, device="cpu",
-            tf32: bool = False, block: int = BLOCK) -> torch.Tensor:
+            tf32: bool = False, pixels: int = PIXELS,
+            window_pixels: int = WINDOW_PIXELS) -> torch.Tensor:
     """The three-pass flow denoise of a (Z, Y, X) volume with the WRAP
     boundary, in float32: each pass filters axis 0 of the volume permuted
-    to its layout.  Returns the (Z, Y, X) float32 result on ``device``."""
+    to its layout, over windows of ``window_pixels`` and tap-solve blocks
+    of ``pixels`` (``windowed_pass``).  Returns the (Z, Y, X) float32
+    result on ``device``."""
     rs = Resizer(tf32)
     run = {"solve": solve_pass, "compose": compose_pass}[tap_mode]
     out = torch.as_tensor(np.asarray(vol), dtype=torch.float32, device=device)
@@ -481,5 +527,5 @@ def denoise(vol, sigma, flow: dict, tap_mode: str, device="cpu",
         taps = gaussian_taps(sigma[axis])
         out = out.permute(tuple(layout.index(ax) for ax in target)).contiguous()
         layout = target
-        out = run(pad_wrap(out, len(taps) // 2), taps, flow, rs, block)
+        out = windowed_pass(out, taps, flow, rs, run, pixels, window_pixels)
     return out.permute(tuple(layout.index(ax) for ax in (0, 1, 2))).contiguous()

@@ -1,13 +1,15 @@
 """The benchmark harness on the CPU: its imports, its files found by name,
-its window arithmetic, its work counts, its layer rule, its reference and
-its plain auto-bound probe against the port's CPU path, and ``correct``
-coming out false for a broken program and for the lower-precision control.
+its window arithmetic, its work counts, its layer rule, its reference (in
+windows of output planes too) and its plain auto-bound probe against the
+port's CPU path, and ``correct`` coming out false for a broken program and
+for the lower-precision control.
 
     python -m pytest -p no:cacheprovider benchmarks/tests -q
 """
 
 import ast
 import copy
+import dataclasses
 import hashlib
 import json
 import shutil
@@ -305,6 +307,74 @@ def test_the_reference_is_the_ports_cpu_path(workload):
     out = denoise(vol, cfg, device="cpu")
     assert torch.equal(out, ref)
     assert not torch.equal(ref, torch.as_tensor(vol))
+
+
+# (Z, Y, X) 20 x 64 x 66 at sigma 0.5 (ks2 2): planes of 4224, 1320 and
+# 1280 pixels; a window of WINDOW_PIXELS holds 6, 28 and 29 output planes
+# (4, 3 and 3 windows, the last short), a tap-solve block of BLOCK_PIXELS 1,
+# 1 and 2 planes
+SMALL = (20, 64, 66)
+SMALL_SIGMA = [0.5, 0.5, 0.5]
+WINDOW_PIXELS = 42240
+BLOCK_PIXELS = 2600
+FLOWS = {"solve": ("epfl.solve", False), "compose": ("epfl.compose", False),
+         "symmetric": ("epfl.compose", True)}
+
+
+def small(flow: str):
+    """A cell of ``FLOWS[flow]`` cut to ``SMALL`` at ``SMALL_SIGMA``."""
+    workload, symmetric = FLOWS[flow]
+    cell = tiny(workload, SMALL)
+    cell.config["sigma"] = list(SMALL_SIGMA)
+    cell.traffic = copy.deepcopy(cell.traffic)
+    cell.traffic["flow"]["symmetric_adjacent"] = symmetric
+    return cell
+
+
+def test_small_budgets_split_every_pass():
+    for n, h, w, ks2 in work.passes(SMALL, SMALL_SIGMA):
+        spans = plain.windows(n, h, w, ks2, WINDOW_PIXELS)
+        assert len(spans) >= 3
+        assert spans[-1][1] - spans[-1][0] < spans[0][1] - spans[0][0]
+        assert [a for a, _ in spans[1:]] == [b for _, b in spans[:-1]]
+        assert spans[0][0] == 0 and spans[-1][1] == n
+        assert plain.block_planes(h, w, BLOCK_PIXELS) in (1, 2)
+
+
+@pytest.mark.parametrize("flow", sorted(FLOWS))
+def test_the_windowed_reference_is_the_whole_pass(flow):
+    cell = small(flow)
+    vol = volumes.volume(cell.config, 2**31 + 3, 0, CPU).numpy()
+    args = (vol, SMALL_SIGMA, cell.flow, cell.flow["tap_mode"], CPU)
+    whole = plain.denoise(*args)
+    windowed = plain.denoise(*args, pixels=BLOCK_PIXELS,
+                             window_pixels=WINDOW_PIXELS)
+    assert torch.equal(windowed, whole)
+    assert not torch.equal(whole, torch.as_tensor(vol))
+
+
+@pytest.mark.parametrize("flow", sorted(FLOWS))
+def test_the_windowed_reference_is_the_ports_slabbed_path(flow):
+    from flowdenoising_tpu_torch.core.pipeline import denoise
+
+    cell = small(flow)
+    vol = volumes.volume(cell.config, 2**31 + 4, 0, CPU).numpy()
+    cfg = dataclasses.replace(Program(cell, CPU).cfg, slab_size=5)
+    out = denoise(vol, cfg, device="cpu")
+    ref = plain.denoise(vol, SMALL_SIGMA, cell.flow, cell.flow["tap_mode"],
+                        CPU, pixels=BLOCK_PIXELS, window_pixels=WINDOW_PIXELS)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in
+                                      spec.benchmark()["workloads"]])
+def test_every_cells_passes_run_whole_in_full_blocks(workload):
+    # the budgets leave the cells' reference arithmetic as it was before
+    # the windows: one window a pass, BLOCK planes a tap solve
+    cell = spec.load(workload)
+    for n, h, w, ks2 in work.passes(cell.shape, cell.config["sigma"]):
+        assert plain.windows(n, h, w, ks2) == [(0, n)]
+        assert plain.block_planes(h, w) == plain.BLOCK
 
 
 def test_a_sound_run_is_correct():
