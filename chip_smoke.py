@@ -625,6 +625,7 @@ def phase_kernels(dev, seed: int) -> dict:
     res.update(compose_runs(r, t))
     res.update(split_warps(r, t))
     res.update(pyramid_kernels(r, t))
+    res.update(resize_kernel_times(r, t))
     return res
 
 
@@ -700,6 +701,50 @@ def pyramid_kernels(r, t, planes: int = 272, size: int = 256) -> dict:
               f"({planes},{size},{size}): kernel {v['ms']:.4f} ms, plain "
               f"{v['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}); no single "
               "library call", flush=True)
+    return res
+
+
+def resize_kernel_times(r, t) -> dict:
+    """K-resize at the main path's largest call, the level-0 flow upsample
+    of the 165x768x1024 volume's Z pass ((165, 2, 384, 512) -> (165, 2,
+    768, 1024)), and at the pass's image downsample to level 1 and seed
+    flow's area resize to level 3: each bit for bit the dense products it
+    replaced (``_apply_separable``, timed beside it as the plain version)
+    and beside its bytes bound, the input read once and the output written
+    once."""
+    from flowdenoising_tpu_torch.ops import resize as R
+
+    calls = (("the level-0 flow upsample", "linear", (165, 2, 384, 512),
+              (768, 1024)),
+             ("the level-1 image downsample", "linear", (181, 768, 1024),
+              (384, 512)),
+             ("the seed's area resize", "area", (165, 2, 768, 1024), (96, 128)))
+    res = {}
+    for what, kind, shape, hw in calls:
+        x = t(r.normal(size=shape) * 3)
+        m = R._MATRICES[kind]
+        wr, wc = m(shape[-2], hw[0]), m(shape[-1], hw[1])
+        fn = (lambda: R.resize_linear(x, hw)) if kind == "linear" else (
+            lambda: R.resize_area(x, hw))
+        out, ref = fn(), R._apply_separable(x, wr, wc)
+        torch.cuda.synchronize()
+        diff = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
+        require(diff == 0, f"K-resize {what} {shape} -> {hw}: {diff} values "
+                f"not bit-identical to the dense products (max abs err "
+                f"{float((out - ref).abs().max())})")
+        nbytes = 4 * (x.numel() + out.numel())
+        del out, ref
+        ms = cuda_ms(fn)
+        pms = cuda_ms(lambda: R._apply_separable(x, wr, wc), reps=3)
+        bms, by = bound(nbytes, 0.0)
+        print(f"[3 kernels] K-resize {what} {shape} -> {hw}: bit-identical, "
+              f"kernel {ms:.4f} ms, dense products {pms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}, {nbytes / 1e9:.3f} GB)", flush=True)
+        if not res:   # the record is the largest call's
+            res["resize"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
+                                 bound_ms=bms, bound_by=by, library_ms=None)
+        del x
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1212,8 +1257,12 @@ def expected_launches(shape, cfg, windows=(1, 1, 1), passes=(0, 1, 2)) -> dict:
     kernel; a denoise never launches the per-tap K-compose, K-um or K-uf.
     A float32 pass builds its expansion pyramid in K-polyexp, one launch a
     level, and K-pyr-blur, one a level past the first (a bf16 pass in the
-    plain chain).  Pass i runs once per window,
-    ``windows[i]`` times (slabs, or a stream's windows with the recomputed
+    plain chain).  K-resize runs each float32 resize: a float32 pyramid's
+    levels past the first, a solve's flow upsamples, one a level past the
+    first (float32 on every route), and outside the split route the seed's
+    resize to the coarsest level (solve mode: every tap but the first of
+    each run); the split route's bf16 seeds and a bf16 pyramid resize in
+    the dense products.  Pass i runs once per window, ``windows[i]`` times (slabs, or a stream's windows with the recomputed
     tail); only the passes in ``passes`` run (a resumed run)."""
     from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
     from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf
@@ -1241,6 +1290,8 @@ def expected_launches(shape, cfg, windows=(1, 1, 1), passes=(0, 1, 2)) -> dict:
         if f.dtype == "float32":
             n["polyexp"] += len(sizes) * windows[i]
             n["pyr_blur"] += (len(sizes) - 1) * windows[i]
+            n["resize"] += (len(sizes) - 1) * windows[i]
+        n["resize"] += solves * (len(sizes) - 1)
         if split_route(f):
             n["umuf_split"] += solves * sum(
                 len(plan_split(hk, wk, f.winsize, f.iterations).launches)
@@ -1250,6 +1301,9 @@ def expected_launches(shape, cfg, windows=(1, 1, 1), passes=(0, 1, 2)) -> dict:
             else:
                 n["sample_split"] += n_taps * windows[i]
             continue
+        seeded = (max(n_taps - 2, 0) * windows[i] if f.tap_mode == "solve"
+                  and f.use_initial_flow and len(sizes) > 1 else 0)
+        n["resize"] += seeded
         for k, (hk, wk) in enumerate(sizes):
             form = "umuf_bf16" if _packed_at_level(adj, k, hk, wk) else "umuf"
             n[form] += solves * len(plan_umuf(hk, wk, f.winsize,
@@ -1321,6 +1375,8 @@ def kernel_family(name: str) -> str:
     """A device kernel's family, for the device-time split."""
     low = name.lower()
     for key, family in (("polyexp_kernel", "K-polyexp"),
+                        ("resize_tile_kernel", "K-resize"),
+                        ("resize_kernel", "K-resize"),
                         ("pyr_blur_kernel", "K-pyr-blur"),
                         ("umuf_split_kernel", "K-umuf-split"),
                         ("sample_split_kernel", "K-sample-split"),
@@ -1935,7 +1991,8 @@ def phase_api(dev, size: int, seed: int, card: str) -> None:
     prepped = prepped_tap_solver(padded, ks2, size, cfg)
     seed_flow = ours(ks2 - 1)
     mine, got = launched("prepped_tap_solver",
-                         lambda: prepped(ks2 - 2, seed_flow), {"umuf"})
+                         lambda: prepped(ks2 - 2, seed_flow),
+                         {"umuf", "resize"})
     same("prepped_tap_solver against tap_solver", mine, ours(ks2 - 2, seed_flow))
     print(f"[9 api] prepped_tap_solver ({tag}): bit for bit tap_solver on the "
           f"tap at offset -2 seeded by offset -1's flow; launches {got}",
@@ -2000,7 +2057,7 @@ def phase_api(dev, size: int, seed: int, card: str) -> None:
     del src16, f16, u16, v16, f16_cl
     flows = [launched(f"farneback_flow of {kind}",
                       lambda a=a, b=b: farneback_flow(a, b),
-                      {"umuf", "polyexp", "pyr_blur"})
+                      {"umuf", "polyexp", "pyr_blur", "resize"})
              for kind, a, b in (("tensors", vol[1:9], vol[:8]),
                                 ("NumPy inputs", noisy[1:9], noisy[:8]))]
     same("farneback_flow of NumPy inputs against tensors", flows[1][0], flows[0][0])
@@ -2063,7 +2120,8 @@ def phase_api(dev, size: int, seed: int, card: str) -> None:
                    if e.get("cat") == "kernel")
     want = expected_launches(clean.shape, cfg)
     counted = (("K-umuf", "umuf"), ("K-sample", "sample"),
-               ("K-polyexp", "polyexp"), ("K-pyr-blur", "pyr_blur"))
+               ("K-polyexp", "polyexp"), ("K-pyr-blur", "pyr_blur"),
+               ("K-resize", "resize"))
     # the runtime launches whose correlation id reached no device event, to
     # tell a launch the trace lost from one the program did not make
     reached = {e.get("args", {}).get("correlation") for e in events
@@ -2084,7 +2142,8 @@ def phase_api(dev, size: int, seed: int, card: str) -> None:
     require(marks, "device_trace: the annotate range is not in the trace")
     print(f"[9 api] device_trace of a warm solve denoise ({tag}): trace "
           f"{nbytes} B, {fams['K-umuf']} K-umuf, {fams['K-sample']} K-sample, "
-          f"{fams['K-polyexp']} K-polyexp and {fams['K-pyr-blur']} K-pyr-blur "
+          f"{fams['K-polyexp']} K-polyexp, {fams['K-pyr-blur']} K-pyr-blur and "
+          f"{fams['K-resize']} K-resize "
           f"kernel events = the launches counted and expected; annotate range "
           f"in it ({len(marks)} events: "
           f"{sorted({e.get('cat') for e in marks})}); wall {plain_s:.3f} s "
@@ -2733,6 +2792,8 @@ def main() -> int:
                     "flowdenoising_tpu/ops/farneback.py:318", "solve"),
         "pyr_blur": ("flowdenoising_tpu_torch/csrc/polyexp.cu",
                      "flowdenoising_tpu/ops/farneback.py:318", "solve"),
+        "resize": ("flowdenoising_tpu_torch/csrc/resize.cu",
+                   "flowdenoising_tpu/ops/resize.py:75", "solve"),
     }
     print(card)
     # "paths": the launches of every phase 4 path (the reconstruction as

@@ -50,6 +50,7 @@ SIGNATURES = {
     "fdt_polyexp_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
     "fdt_pyr_blur": ([_P, _P, _P, _I, _I, _I, _P, _I, _P], _I),
     "fdt_pyr_blur_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
+    "fdt_resize": ([_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P], _I),
     "fdt_sample": ([_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _F, _I,
                     _P], _I),
     "fdt_sample_split": ([_P, _P, _P, _I, _P, _P, _F, _I, _I, _I, _I,

@@ -1,18 +1,34 @@
-"""Separable image resizing as two dense matrix products per plane.
+"""Separable image resizing: a banded CUDA kernel on the card, two dense
+matrix products per plane elsewhere.
 
 Counterpart of ``flowdenoising_tpu/ops/resize.py``.  Every resample of the
 Farneback pyramid (OpenCV INTER_LINEAR for image and flow, INTER_AREA for
 the seed flow) is ``out = W_rows @ img @ W_cols^T`` with weight matrices
-built on the host in float64 and cast to the input's dtype.  The products
-run in full float32 whatever the process has set, as the JAX package pins
-them to HIGHEST: ``_full_float32`` sets the float32 precision of the CUDA
-(TF32) and oneDNN (bfloat16 on the CPU) matrix products to "ieee" around
-them and restores the caller's settings after.  A bfloat16 input (a
-``--dtype bfloat16`` pass) has its weights rounded to bfloat16 and each of
-the two products rounded to bfloat16, as the JAX package's bf16 einsum at
-HIGHEST precision rounds them; the product itself is taken in float32 (a
-product of two bf16 values is exact there), not as a bf16 matrix product
-whose reduction the library may round on the way.
+built on the host in float64 and cast to the input's dtype.  Two routes
+compute it:
+
+- A CUDA float32 tensor runs K-resize (``ops/cuda/resize.py``,
+  ``csrc/resize.cu``): one launch a resize, a gather over each axis's tap
+  table (``tap_table``: for each output index the first source index and a
+  fixed-width run of the matrix's own float32 weights), copied to the card
+  at a shape's first use and kept there.  It sums as a sequential
+  multiply-add product does, rows first, so for finite inputs its bits are
+  the dense products' wherever cuBLAS sums in order, as it does at every
+  resize of the benchmark's passes (it splits the sums of some single
+  planes).
+- Every other tensor, a CPU or bfloat16 one, takes the dense products
+  (``_apply_separable``), which stay as K-resize's plain version.  They run
+  in full float32 whatever the process has set, as the JAX package pins
+  them to HIGHEST: ``_full_float32`` sets the float32 precision of the CUDA
+  (TF32) and oneDNN (bfloat16 on the CPU) matrix products to "ieee" around
+  them and restores the caller's settings after.  A bfloat16 input (a
+  ``--dtype bfloat16`` pass) has its weights rounded to bfloat16 and each
+  of the two products rounded to bfloat16, as the JAX package's bf16 einsum
+  at HIGHEST precision rounds them; the product itself is taken in float32
+  (a product of two bf16 values is exact there), not as a bf16 matrix
+  product whose reduction the library may round on the way.
+
+Both run in the range ``fdt.resize``.
 
 Weight conventions match OpenCV:
 - linear: source coordinate ``s = (d + 0.5) * (in/out) - 0.5``, bilinear taps
@@ -28,6 +44,7 @@ import functools
 import numpy as np
 import torch
 
+from flowdenoising_tpu_torch.ops.cuda import resize as kernel
 from flowdenoising_tpu_torch.utils.tracing import RESIZE_RANGE, span
 
 
@@ -72,6 +89,31 @@ def area_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
     return w
 
 
+_MATRICES = {"linear": linear_resize_matrix, "area": area_resize_matrix}
+
+
+@functools.lru_cache(maxsize=None)
+def tap_table(kind: str, n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """K-resize's taps of one axis, ``kind`` "linear" or "area": (start,
+    weights), start (n_out,) int32 and weights (n_out, taps) float32, so
+    that row d of the (n_out, n_in) matrix cast to float32 holds
+    ``weights[d]`` at ``start[d] ..  start[d] + taps - 1`` and zeros
+    elsewhere.  ``taps`` spans the widest row's nonzeros (2 for linear, at
+    most ceil(n_in / n_out) + 1 for area), and each run is moved left where
+    it would pass the axis's end.  Read-only arrays, cached."""
+    m = _MATRICES[kind](n_in, n_out)
+    nonzero = m != 0
+    first = nonzero.argmax(axis=1)
+    last = n_in - 1 - nonzero[:, ::-1].argmax(axis=1)
+    taps = int((last - first).max()) + 1
+    start = np.minimum(first, n_in - taps).astype(np.int32)
+    weights = np.take_along_axis(m, start[:, None] + np.arange(taps),
+                                 axis=1).astype(np.float32)
+    start.flags.writeable = False
+    weights.flags.writeable = False
+    return start, weights
+
+
 # The float32 matrix-product settings that torch.set_float32_matmul_precision
 # and torch.backends.fp32_precision reach: "high" or "medium" turns on TF32
 # on CUDA, and "medium" bfloat16 products in oneDNN on the CPU.
@@ -101,42 +143,45 @@ def _apply_separable(img: torch.Tensor, wr: np.ndarray,
     shapes are the plane's, never the batch's: folding the batch into a
     matrix dimension let the library pick another algorithm, with another
     order of the sums, for another number of planes, so a window's planes
-    came out other than the whole axis's.  Runs in the range
-    ``fdt.resize``; each matrix's copy to the device is a drain of its own
-    (``fdt.drain.resize_matrix``)."""
+    came out other than the whole axis's.  Each matrix's copy to the
+    device is a drain of its own (``fdt.drain.resize_matrix``)."""
+    dtype = img.dtype
+    lead = tuple(img.shape[:-2])
+    x = img.reshape((-1,) + tuple(img.shape[-2:])).float()
+    b = x.shape[0]
+    with span("fdt.drain.resize_matrix"):
+        wr_t = torch.as_tensor(wr, dtype=dtype, device=img.device).float()
+    with span("fdt.drain.resize_matrix"):
+        wc_t = torch.as_tensor(wc, dtype=dtype, device=img.device).float()
+    with _full_float32():
+        out = torch.bmm(wr_t.expand(b, -1, -1), x).to(dtype)
+        out = torch.bmm(out.float(), wc_t.t().expand(b, -1, -1)).to(dtype)
+    return out.reshape(lead + tuple(out.shape[-2:]))
+
+
+def _resize(img: torch.Tensor, kind: str, out_hw: tuple[int, int]) -> torch.Tensor:
+    """The trailing two axes resized to ``out_hw`` in the range
+    ``fdt.resize``: K-resize where ``kernel.takes(img)``, else the dense
+    products; img itself where the shape is already ``out_hw``."""
+    h_in, w_in = img.shape[-2], img.shape[-1]
+    h_out, w_out = out_hw
+    if (h_in, w_in) == (h_out, w_out):
+        return img
     with span(RESIZE_RANGE):
-        dtype = img.dtype
-        lead = tuple(img.shape[:-2])
-        x = img.reshape((-1,) + tuple(img.shape[-2:])).float()
-        b = x.shape[0]
-        with span("fdt.drain.resize_matrix"):
-            wr_t = torch.as_tensor(wr, dtype=dtype, device=img.device).float()
-        with span("fdt.drain.resize_matrix"):
-            wc_t = torch.as_tensor(wc, dtype=dtype, device=img.device).float()
-        with _full_float32():
-            out = torch.bmm(wr_t.expand(b, -1, -1), x).to(dtype)
-            out = torch.bmm(out.float(), wc_t.t().expand(b, -1, -1)).to(dtype)
-        return out.reshape(lead + tuple(out.shape[-2:]))
+        if kernel.takes(img):
+            return kernel.resize(img, kind, (h_out, w_out))
+        matrix = _MATRICES[kind]
+        return _apply_separable(img, matrix(h_in, h_out), matrix(w_in, w_out))
 
 
 def resize_linear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Bilinear resize of the trailing two axes (OpenCV INTER_LINEAR)."""
-    h_in, w_in = img.shape[-2], img.shape[-1]
-    h_out, w_out = out_hw
-    if (h_in, w_in) == (h_out, w_out):
-        return img
-    return _apply_separable(img, linear_resize_matrix(h_in, h_out),
-                            linear_resize_matrix(w_in, w_out))
+    return _resize(img, "linear", out_hw)
 
 
 def resize_area(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Area-average resize of the trailing two axes (OpenCV INTER_AREA)."""
-    h_in, w_in = img.shape[-2], img.shape[-1]
-    h_out, w_out = out_hw
-    if (h_in, w_in) == (h_out, w_out):
-        return img
-    return _apply_separable(img, area_resize_matrix(h_in, h_out),
-                            area_resize_matrix(w_in, w_out))
+    return _resize(img, "area", out_hw)
 
 
 def cv_round(x: float) -> int:

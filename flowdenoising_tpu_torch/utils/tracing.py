@@ -24,7 +24,8 @@ check and nothing else.  The names:
   K-umuf-split);
 - ``warping``: each tap warp (K-sample, K-sample-split);
 - ``fdt.compose``: each compose pass (K-compose-run, K-compose-run-split);
-- ``fdt.resize``: each separable resize (``ops.resize``);
+- ``fdt.resize``: each separable resize (``ops.resize``: K-resize or the
+  dense products);
 - ``fdt.pass``: each pass of ``core.pipeline`` (Z, Y, X);
 - ``fdt.drain.<site>``: each call that holds the host on a CUDA device,
   a copy from pageable host memory (which syncs the stream) or the memory
@@ -32,8 +33,9 @@ check and nothing else.  The names:
   (an array taken to the device, ``ops.device.as_tensors``),
   ``pad_index`` (``core.axis_filter.pad_stack``), ``blur_index``
   (``ops.blur.corr1d``: the pyramid's plain chain, on a CPU or bfloat16
-  stack, and the presmooth blur), ``resize_matrix`` (each of a resize's two weight
-  matrices), ``mem_info`` (``core.memory.device_budget``), ``pad_fill``
+  stack, and the presmooth blur), ``resize_matrix`` (K-resize's tap
+  table of an axis, at its shape's first use on a device; each weight
+  matrix of a bfloat16 resize), ``mem_info`` (``core.memory.device_budget``), ``pad_fill``
   (the MEAN boundary's fill value from the host).  On the card one span is
   one drain, so a trace's count of them is the count of drains.
 """

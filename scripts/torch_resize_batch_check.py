@@ -17,7 +17,10 @@ batched product with the plane's shapes).  Also whether the two forms
 agree, and their times at the 256^3 shapes.  Then the expansion pyramid
 of a window against the whole stack's, level by level, and a whole solve
 pass of the 512x1024x1024 volume's Y axis against windows of 153 planes
-in each form.  One JSON line per comparison.
+in each form.  One JSON line per comparison.  (A float32 resize on the
+card runs K-resize, ``ops/cuda/resize.py``; the script checks the dense
+forms it replaced, which still serve a CPU or bf16 tensor, and routes the
+pass around the kernel.)
 """
 
 from __future__ import annotations
@@ -141,7 +144,10 @@ def main() -> int:
     host += r.normal(0.0, 40.0, host.shape).astype(np.float32)
     padded = torch.from_numpy(host).to(dev)
     del host
-    saved = R._apply_separable
+    # the dense forms in place of K-resize, which a float32 pass on the
+    # card would otherwise take
+    saved, takes = R._apply_separable, R.kernel.takes
+    R.kernel.takes = lambda img: False
     for name, fn in forms.items():
         R._apply_separable = fn
         try:
@@ -157,6 +163,7 @@ def main() -> int:
             torch.cuda.empty_cache()
         finally:
             R._apply_separable = saved
+    R.kernel.takes = takes
     del padded
     torch.cuda.empty_cache()
     # times at the 256^3 pass's largest resize, in turns

@@ -437,8 +437,10 @@ def test_bf16_nobound_denoise_on_the_card(dev, fields):
     # planner plans it (8 taps a pass in solve mode, one adjacent solve in
     # symmetric compose; 2 levels in the Z pass, 1 in the Y and X passes'
     # 12 x 64 planes; 3 iterations, one launch a level), a K-sample-split a
-    # tap in solve mode, a K-compose-run-split a pass in compose mode, no
-    # K-uf and no other kernel; the card equals the CPU bit for bit
+    # tap in solve mode, a K-compose-run-split a pass in compose mode, a
+    # K-resize for each Z solve's float32 flow upsample (the bf16 seeds keep
+    # the dense products), no K-uf and no other kernel; the card equals the
+    # CPU bit for bit
     cfg = FilterConfig(sigma=(1.0, 1.0, 1.0), flow=FlowConfig(
         dtype="bfloat16", max_displacement=None, levels=1, **fields))
     vol = _blob_like((12, 64, 64), 2)
@@ -450,6 +452,7 @@ def test_bf16_nobound_denoise_on_the_card(dev, fields):
         len(plan_split(h, w, 5, 3).launches) for h, w in levels)
     assert want["umuf_split"] == (1 if fields else 8) * 4
     want["compose_run_split" if fields else "sample_split"] = 3 if fields else 24
+    want["resize"] = 1 if fields else 8
     assert K.LAUNCHES == want
     np.testing.assert_array_equal(on_card, denoise(vol, cfg, device="cpu").numpy())
 
@@ -613,7 +616,8 @@ def test_polyexp_pyramid_kernels_equal_the_plain_pyramid(dev, b, h, w):
         before = dict(K.LAUNCHES)
         out = F.polyexp_pyramid(x, cfg)
         assert K.LAUNCHES == {**before, "polyexp": before["polyexp"] + n,
-                              "pyr_blur": before["pyr_blur"] + n - 1}
+                              "pyr_blur": before["pyr_blur"] + n - 1,
+                              "resize": before["resize"] + n - 1}
         ref = _plain_pyramid(x, cfg)
         torch.cuda.synchronize()
         assert len(out) == len(ref) == n
@@ -643,7 +647,8 @@ def test_polyexp_kernels_take_any_poly_n(dev, poly_n):
     before = dict(K.LAUNCHES)
     out = F.polyexp_pyramid(x, cfg)
     assert K.LAUNCHES == {**before, "polyexp": before["polyexp"] + 3,
-                          "pyr_blur": before["pyr_blur"] + 2}
+                          "pyr_blur": before["pyr_blur"] + 2,
+                          "resize": before["resize"] + 2}
     for o, rf in zip(out, _plain_pyramid(x, cfg)):
         assert o.is_contiguous() and torch.equal(o, rf)
 
@@ -655,7 +660,8 @@ def test_polyexp_kernels_take_pyramids_past_the_tile_blur(dev):
     before = dict(K.LAUNCHES)
     out = F.polyexp_pyramid(x, cfg)
     assert K.LAUNCHES == {**before, "polyexp": before["polyexp"] + 9,
-                          "pyr_blur": before["pyr_blur"] + 8}
+                          "pyr_blur": before["pyr_blur"] + 8,
+                          "resize": before["resize"] + 8}
     ref = _plain_pyramid(x, cfg)
     assert len(out) == len(ref) == 9
     for o, rf in zip(out, ref):

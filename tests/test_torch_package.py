@@ -135,8 +135,8 @@ def test_from_reference_round_trips(jcfg):
 
 def test_nvcc_command_targets_sm_90a():
     srcs = build.sources()
-    assert [s.name for s in srcs] == ["compose.cu", "polyexp.cu", "sample.cu",
-                                      "uf.cu", "um.cu", "umuf.cu",
+    assert [s.name for s in srcs] == ["compose.cu", "polyexp.cu", "resize.cu",
+                                      "sample.cu", "uf.cu", "um.cu", "umuf.cu",
                                       "umuf_split.cu"]
     for src in srcs:
         cmd = build.compile_command(src, Path("x.o"))

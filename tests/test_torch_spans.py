@@ -49,8 +49,10 @@ def reckon(shape, cfg: FilterConfig, cuda: bool, array_input: bool) -> dict:
     ``clamped_levels``), and solves 2 * ks2 tap flows (solve mode, each
     seeded by the tap before it within a run) or the adjacent flows once
     or twice (compose mode), every solve L + 1 levels with a resize
-    between them and, where seeded, one to the coarsest level; a resize
-    copies two weight matrices.  On the card the float32 pyramid runs in
+    between them and, where seeded, one to the coarsest level.  On the CPU
+    a resize copies two weight matrices; on the card K-resize copies each
+    tap table at its shape's first use only, which the warm call before
+    the traced one has made.  On the card the float32 pyramid runs in
     the kernels, which copy no index vector; on the CPU (``cuda`` false)
     it runs the plain chain, whose correlations copy one each, the solves
     run the plain iteration, whose box sum is two more correlations an
@@ -82,7 +84,8 @@ def reckon(shape, cfg: FilterConfig, cuda: bool, array_input: bool) -> dict:
         if not cuda:
             want[DRAIN + "blur_index"] += (
                 BLUR_INDEX_A_LEVEL + 2 * f.iterations * solves) * (levels + 1)
-        want[DRAIN + "resize_matrix"] += 2 * resizes
+        if not cuda:
+            want[DRAIN + "resize_matrix"] += 2 * resizes
     return want
 
 
