@@ -328,8 +328,8 @@ def phase_build() -> None:
 
 def phase_kernels(dev, seed: int) -> dict:
     from flowdenoising_tpu_torch.ops import farneback as F
-    from flowdenoising_tpu_torch.ops.cuda.compose import (
-        compose_tap, compose_tap_plain)
+    from flowdenoising_tpu_torch.ops.compose import compose_tap_plain
+    from flowdenoising_tpu_torch.ops.cuda.compose import compose_tap
     from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf, umuf_iterate
     from flowdenoising_tpu_torch.ops.cuda.sample import displace_sample
     from flowdenoising_tpu_torch.ops.warp import displace_sample_plain
@@ -643,7 +643,8 @@ def pyramid_kernels(r, t, planes: int = 272, size: int = 256) -> dict:
     from flowdenoising_tpu_torch.ops import farneback as F
     from flowdenoising_tpu_torch.ops.blur import (
         _sep_correlate, smooth_kernel_for_level)
-    from flowdenoising_tpu_torch.ops.cuda.polyexp import expand_level, pyr_blur
+    from flowdenoising_tpu_torch.ops.cuda.polyexp import pyr_blur
+    from flowdenoising_tpu_torch.ops.farneback import expand_level
 
     cfg = FlowConfig()
     n, sigma = cfg.poly_n, cfg.poly_sigma
@@ -827,8 +828,9 @@ def compose_runs(r, t, n: int = 256) -> dict:
     against compose_run_plain at atol 0, on 16 planes of n^2 and at the
     main path's pass call (n planes of n^2, ks2 8), timed there beside the
     2*ks2 per-tap K-compose launches it replaced."""
+    from flowdenoising_tpu_torch.ops.compose import compose_run_plain
     from flowdenoising_tpu_torch.ops.cuda.compose import (
-        compose_run, compose_run_plain, compose_tap)
+        compose_run, compose_tap)
 
     bf16 = torch.bfloat16
 
@@ -949,10 +951,10 @@ def split_warps(r, t, n: int = 256) -> dict:
     coordinates lose their fractions and their odd values (with and without
     the accumulator; ks2 8 and 12).  Timed at the main calls beside the
     plain version and the bound."""
-    from flowdenoising_tpu_torch.ops.cuda.compose import (
-        compose_chain_plain, compose_run_split)
-    from flowdenoising_tpu_torch.ops.cuda.sample import (
-        sample_split, sample_split_plain)
+    from flowdenoising_tpu_torch.ops.compose import compose_chain_plain
+    from flowdenoising_tpu_torch.ops.cuda.compose import compose_run_split
+    from flowdenoising_tpu_torch.ops.cuda.sample import sample_split
+    from flowdenoising_tpu_torch.ops.warp import sample_split_plain
 
     bf16 = torch.bfloat16
 
@@ -1108,8 +1110,8 @@ def packed_forms(r, t, banded_flow, umuf_operands) -> dict:
     bit for bit; timed beside its float32 form; bound at bf16 source
     width."""
     from flowdenoising_tpu_torch.ops import farneback as F
-    from flowdenoising_tpu_torch.ops.cuda.compose import (
-        compose_tap, compose_tap_plain)
+    from flowdenoising_tpu_torch.ops.compose import compose_tap_plain
+    from flowdenoising_tpu_torch.ops.cuda.compose import compose_tap
     from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
 
     bf16 = torch.bfloat16

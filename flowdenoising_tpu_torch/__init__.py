@@ -11,11 +11,15 @@ CUDA for an array unless ``device="cpu"`` is passed:
   pipeline (``denoise``; ``denoise_many`` for batches of volumes; the
   disk-streamed ``stream.denoise_streamed``; the slab memory model), the
   auto displacement probe and the noise policy;
-- ``flowdenoising_tpu_torch.ops``   -- resize, blur, warp and Farneback
-  flow, with the hand-written CUDA kernels K-umuf (one Farneback iteration),
-  K-sample (the solve-mode tap warp), K-compose (the compose-mode tap), and
-  K-um and K-uf (the two halves of an iteration, for the ``-v 2`` report)
-  under ``ops.cuda`` and their plain PyTorch versions beside them;
+- ``flowdenoising_tpu_torch.ops``   -- resize, blur, warp, the compose
+  taps and Farneback flow: the math, the plain PyTorch version of each
+  hand-written CUDA kernel, and the one choice between the two
+  (``ops.device.use_kernel``: the kernel on a CUDA tensor, the plain
+  version on a CPU one).  ``ops.cuda`` only launches the kernels: K-umuf,
+  K-umuf-split, K-um and K-uf (Farneback iterations), K-sample and
+  K-sample-split (tap warps), K-compose, K-compose-run and
+  K-compose-run-split (compose taps), K-polyexp and K-pyr-blur (the
+  expansion pyramid), and K-resize;
 - ``flowdenoising_tpu_torch.utils`` -- pass-boundary checkpoints, the
   ``-v 2`` stage reports, PSNR/SSIM (``metrics``), device traces
   (``tracing``), logging and progress;

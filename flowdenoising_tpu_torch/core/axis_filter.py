@@ -41,7 +41,7 @@ split iteration at every level (K-umuf-split), the tap flows carried in
 bf16, every warp the exact gather in bf16 arithmetic
 (``ops.warp.displace_sample_xla``; K-sample-split, which also adds the
 weighted warp into the accumulator), and in compose mode the tap chain in
-bf16 (``ops.cuda.compose.compose_chain_plain``; one K-compose-run-split
+bf16 (``ops.compose.compose_chain_plain``; one K-compose-run-split
 launch a pass).
 """
 
@@ -54,13 +54,11 @@ import torch
 
 from flowdenoising_tpu_torch.config import Boundary, FlowConfig
 from flowdenoising_tpu_torch.ops.blur import gaussian_blur, rounded
-from flowdenoising_tpu_torch.ops.cuda.compose import (
-    compose_run, compose_run_split)
-from flowdenoising_tpu_torch.ops.cuda.sample import (
-    displace_sample, sample_split)
+from flowdenoising_tpu_torch.ops.compose import compose_run, compose_run_split
 from flowdenoising_tpu_torch.ops.device import as_tensors
 from flowdenoising_tpu_torch.ops.farneback import (
     flow_from_pyramids, polyexp_pyramid, split_route, tap_solver)
+from flowdenoising_tpu_torch.ops.warp import displace_sample, sample_split
 from flowdenoising_tpu_torch.utils.tracing import (
     COMPOSE_RANGE, WARP_RANGE, span)
 

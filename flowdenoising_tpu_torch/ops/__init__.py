@@ -1,5 +1,8 @@
-"""Tensor operations: resize, blur, warp, Farneback flow, and the CUDA
-kernels under ``ops.cuda``."""
+"""Tensor operations: resize, blur, warp, the compose taps and Farneback
+flow.  Each operation that has a hand-written CUDA kernel runs it on a CUDA
+tensor and its plain PyTorch version, kept here, on a CPU tensor; the
+choice is ``ops.device.use_kernel``'s alone.  ``ops.cuda`` launches the
+kernels and imports nothing of this layer."""
 
 from flowdenoising_tpu_torch.ops.warp import warp_slices
 from flowdenoising_tpu_torch.ops.resize import (

@@ -6,7 +6,8 @@ GaussianBlur and the winsize box aggregation of OpenCV's Farneback.  Each
 library call, so no TF32 question arises), in the input's dtype: on a
 bfloat16 input (a ``--dtype bfloat16`` pass) the taps are rounded to
 bfloat16 and every product and sum rounds to bfloat16, as the JAX
-package's correlation does.
+package's correlation does.  A pyramid level's pre-blur (``pyr_blur``)
+runs in the kernel K-pyr-blur on a CUDA float32 stack.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import functools
 import numpy as np
 import torch
 
-from flowdenoising_tpu_torch.ops.device import as_tensors
+from flowdenoising_tpu_torch.ops.cuda import polyexp as kernel
+from flowdenoising_tpu_torch.ops.device import as_tensors, use_kernel
 from flowdenoising_tpu_torch.utils.tracing import span
 
 # OpenCV getGaussianKernel fixed taps for sigma<=0 and ksize in {1,3,5,7}.
@@ -88,6 +90,15 @@ def _sep_correlate(img: torch.Tensor, taps_h: np.ndarray, taps_w: np.ndarray,
                    pad_mode: str) -> torch.Tensor:
     """Separable 2-D correlation on the trailing axes."""
     return corr1d(corr1d(img, taps_h, -2, pad_mode), taps_w, -1, pad_mode)
+
+
+def pyr_blur(img: torch.Tensor, taps) -> torch.Tensor:
+    """A pyramid level's reflect-101 pre-blur of (..., H, W) with an odd
+    number of ``taps``: K-pyr-blur on a CUDA float32 stack, bit for bit its
+    plain version ``_sep_correlate`` elsewhere."""
+    if use_kernel(img, "pyr_blur", float32=True):
+        return kernel.pyr_blur(img, taps)
+    return _sep_correlate(img, taps, taps, "reflect")
 
 
 def gaussian_blur(img: torch.Tensor, ksize: int, sigma: float) -> torch.Tensor:

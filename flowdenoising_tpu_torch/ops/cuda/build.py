@@ -29,43 +29,6 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xptxas",
                  "-v", "-Xcompiler", "-fPIC", "-c"]
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-_COMPOSE = ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P], _I)
-_COMPOSE_RUN = ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P], _I)
-_UMUF = ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _F, _I, _I, _I, _I, _P],
-         _I)
-_UM = ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _P], _I)
-# C signature of every exported function: (argtypes, restype).  A *_bf16
-# entry is its kernel's packed form: the same arguments, the sampling source
-# bfloat16.
-SIGNATURES = {
-    "fdt_compose_step": _COMPOSE,
-    "fdt_compose_step_bf16": _COMPOSE,
-    "fdt_compose_run": _COMPOSE_RUN,
-    "fdt_compose_run_bf16": _COMPOSE_RUN,
-    "fdt_compose_run_split": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P], _I),
-    "fdt_polyexp": ([_P, _P, _P, _I, _I, _I, _I, _P, _I, _P], _I),
-    "fdt_polyexp_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
-    "fdt_pyr_blur": ([_P, _P, _P, _I, _I, _I, _P, _I, _P], _I),
-    "fdt_pyr_blur_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
-    "fdt_resize": ([_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P], _I),
-    "fdt_sample": ([_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _F, _I,
-                    _P], _I),
-    "fdt_sample_split": ([_P, _P, _P, _I, _P, _P, _F, _I, _I, _I, _I,
-                          ctypes.c_longlong, _P], _I),
-    "fdt_umuf": _UMUF,
-    "fdt_umuf_bf16": _UMUF,
-    "fdt_umuf_smem": ([_I, _I, _I, _I, _I, _I], ctypes.c_longlong),
-    "fdt_umuf_split": ([_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I,
-                        _P], _I),
-    "fdt_update_flow": ([_P, _P, _I, _I, _I, _I, _F, _P], _I),
-    "fdt_update_flow_smem": ([_I], ctypes.c_longlong),
-    "fdt_update_matrices": _UM,
-    "fdt_update_matrices_bf16": _UM,
-}
-
 
 def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
@@ -145,16 +108,6 @@ def build() -> Path:
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """The built kernel library, with every function's C signature set."""
-    lib = ctypes.CDLL(str(build()))
-    for name, (argtypes, restype) in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-    return lib
-
-
-def check(rc: int, name: str) -> None:
-    """Raise when a launcher returned a CUDA error code."""
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc}")
+    """The built kernel library (``ops.cuda.entry`` sets each C entry's
+    signature)."""
+    return ctypes.CDLL(str(build()))

@@ -2,60 +2,19 @@
 kernel ``flowdenoising_tpu/ops/pallas/compose.py: _compose_kernel``, with
 its packed form; CUDA source ``flowdenoising_tpu_torch/csrc/compose.cu``);
 K-compose-run, a whole pass in one launch; K-compose-run-split, the split
-route's pass (bf16 arithmetic with no bound); and their plain PyTorch
-versions."""
+route's pass (bf16 arithmetic with no bound)."""
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from flowdenoising_tpu_torch.ops.cuda import LAUNCHES
-from flowdenoising_tpu_torch.ops.cuda.build import check, load_library
-from flowdenoising_tpu_torch.ops.warp import (
-    displace_sample_plain, displace_sample_xla)
+from flowdenoising_tpu_torch.ops.cuda import check_operands, launch
 
 
-def compose_tap_plain(link: torch.Tensor, flow: torch.Tensor,
-                      neighbor: torch.Tensor, acc: torch.Tensor,
-                      weight: float, d: int | None, round_carry: bool = False):
-    """Plain version of K-compose: ``flow' = flow + warp(link, flow)`` and
-    ``acc' = acc + warp(neighbor, flow') * weight``.
-
-    link, flow: (B, 2, H, W), channel 0 = x; neighbor, acc: (B, H, W).  The
-    warps sample at the flow clamped to +-d (None: no clamp); flow' is the
-    unclamped sum.  link and neighbor may be bfloat16 (the packed form):
-    they are sampled in float32.  ``round_carry`` rounds flow' and acc' to
-    bfloat16 (a bf16 pass's carry) after the neighbour was sampled at the
-    unrounded flow'.  Returns new float32 tensors (flow', acc').
-    """
-    flow = flow + displace_sample_plain(link, flow[:, 0], flow[:, 1], d)
-    warped = displace_sample_plain(neighbor, flow[:, 0], flow[:, 1], d)
-    acc = acc + warped * weight
-    if round_carry:
-        flow = flow.to(torch.bfloat16).float()
-        acc = acc.to(torch.bfloat16).float()
-    return flow, acc
-
-
-def compose_tap(link: torch.Tensor, flow: torch.Tensor,
-                neighbor: torch.Tensor, acc: torch.Tensor, weight: float,
-                d: int | None, link_start: int, nb_start: int,
-                round_carry: bool = False):
-    """One compose tap, updating ``flow`` and ``acc`` in place.
-
-    link: the whole stack of adjacent flows (B_link, 2, H, W); neighbor:
-    the whole padded stack (B_nb, H, W).  The tap reads their planes
-    ``link_start .. link_start + B - 1`` and ``nb_start .. nb_start + B -
-    1`` for flow (B, 2, H, W) and acc (B, H, W).  flow and acc are float32;
-    link and neighbor are both float32, or both bfloat16 for the packed
-    form (K-compose-bf16, ``--precision bfloat16``).  ``weight`` is rounded
-    to float32; ``round_carry`` rounds the stored flow and acc to bfloat16
-    (``--dtype bfloat16``).  Returns (flow, acc).
-
-    A CPU tensor takes the plain version (``compose_tap_plain``), a CUDA
-    tensor the kernel; any other device raises.
-    """
+def check_tap(link: torch.Tensor, flow: torch.Tensor, neighbor: torch.Tensor,
+              acc: torch.Tensor, link_start: int, nb_start: int) -> int:
+    """A compose tap's B; raises ValueError unless the shapes and the
+    starts are a tap's."""
     b, _, h, w = flow.shape
     if (flow.shape != (b, 2, h, w) or link.ndim != 4
             or link.shape[1:] != (2, h, w) or acc.shape != (b, h, w)
@@ -70,69 +29,13 @@ def compose_tap(link: torch.Tensor, flow: torch.Tensor,
         if not 0 <= start <= stack.shape[0] - b:
             raise ValueError(f"compose_tap: {name} {start} out of range for "
                              f"{b} planes of a stack of {stack.shape[0]}")
-    weight = float(np.float32(weight))
-    if flow.device.type == "cpu":
-        f2, a2 = compose_tap_plain(link[link_start:link_start + b], flow,
-                                   neighbor[nb_start:nb_start + b], acc,
-                                   weight, d, round_carry)
-        return flow.copy_(f2), acc.copy_(a2)
-    if flow.device.type != "cuda":
-        raise ValueError(f"compose_tap: no kernel for device {flow.device}")
-    src = link.dtype if link.dtype == torch.bfloat16 else torch.float32
-    for name, t, dtype in (("link", link, src), ("flow", flow, torch.float32),
-                           ("neighbor", neighbor, src),
-                           ("acc", acc, torch.float32)):
-        if (t.dtype != dtype or t.device != flow.device
-                or not t.is_contiguous()):
-            raise ValueError(f"compose_tap: {name} must be contiguous "
-                             f"{dtype} on {flow.device}")
-    packed = src == torch.bfloat16
-    form = "compose_bf16" if packed else "compose"
-    entry = "fdt_compose_step_bf16" if packed else "fdt_compose_step"
-    dval = 0.0 if d is None else float(d)
-    rc = getattr(load_library(), entry)(
-        link.data_ptr(), neighbor.data_ptr(), flow.data_ptr(), acc.data_ptr(),
-        b, h, w, link_start, nb_start, weight, dval, int(d is not None),
-        int(round_carry), torch.cuda.current_stream(flow.device).cuda_stream)
-    check(rc, entry)
-    LAUNCHES[form] += 1
-    return flow, acc
+    return b
 
 
-def compose_run_plain(adj_fwd: torch.Tensor, adj_bwd: torch.Tensor | None,
-                      neighbor: torch.Tensor, acc: torch.Tensor, weights,
-                      d: int | None, round_carry: bool = False) -> torch.Tensor:
-    """Plain version of K-compose-run: the taps of one compose pass as a
-    chain of ``compose_tap_plain`` steps, in the pass's order.
-
-    ``weights`` holds 2*ks2 tap weights, offsets -1 .. -ks2 then +1 ..
-    +ks2.  Starting from acc (the center tap), the backward run composes
-    flow from zero through the links ``adj_bwd[ks2-j+b]`` and adds
-    neighbour ``ks2-j+b`` at each offset -j; the flow goes back to zero;
-    the forward run takes links ``adj_fwd[ks2+j-1+b]`` and neighbours
-    ``ks2+j+b``.  ``adj_bwd`` None stands for ``-adj_fwd`` (symmetric
-    adjacent flows).  Returns the new float32 accumulator.
-    """
-    ks2 = len(weights) // 2
-    n = acc.shape[0]
-    for sign in (-1, +1):
-        f = torch.zeros((n, 2) + tuple(acc.shape[1:]), device=acc.device)
-        for j in range(1, ks2 + 1):
-            start = ks2 + sign * j
-            if sign > 0:
-                link = adj_fwd[start - 1:start - 1 + n]
-            else:
-                link = (-adj_fwd[start:start + n] if adj_bwd is None
-                        else adj_bwd[start:start + n])
-            f, acc = compose_tap_plain(link, f, neighbor[start:start + n], acc,
-                                       weights[ks2 * (sign > 0) + j - 1], d,
-                                       round_carry)
-    return acc
-
-
-def _check_run(what: str, adj_fwd: torch.Tensor, adj_bwd: torch.Tensor | None,
-               neighbor: torch.Tensor, acc: torch.Tensor, weights) -> int:
-    """A compose pass's ks2; raises unless the shapes are a pass's."""
+def check_run(what: str, adj_fwd: torch.Tensor, adj_bwd: torch.Tensor | None,
+              neighbor: torch.Tensor, acc: torch.Tensor, weights) -> int:
+    """A compose pass's ks2; raises ValueError unless the shapes are a
+    pass's."""
     ks2 = len(weights) // 2
     n = acc.shape[0]
     h, w = acc.shape[1:] if acc.ndim == 3 else (None, None)
@@ -148,10 +51,68 @@ def _check_run(what: str, adj_fwd: torch.Tensor, adj_bwd: torch.Tensor | None,
     return ks2
 
 
+def _run(what: str, name: str, adj_fwd: torch.Tensor,
+         adj_bwd: torch.Tensor | None, neighbor: torch.Tensor,
+         acc: torch.Tensor, weights, src: tuple, acc_dtype: tuple,
+         *args) -> torch.Tensor:
+    """Check a compose pass's operands (links and neighbor of ``src``, acc
+    of ``acc_dtype``) and launch ``name`` over it with ``args`` after the
+    common ones; the weights are copied from pinned memory, so that the copy
+    does not wait for the stream to drain."""
+    ks2 = check_run(what, adj_fwd, adj_bwd, neighbor, acc, weights)
+    links = [("adj_fwd", adj_fwd)] + ([] if adj_bwd is None
+                                      else [("adj_bwd", adj_bwd)])
+    check_operands(what, [("acc", acc, acc_dtype), ("neighbor", neighbor, src),
+                          *((nm, t, src) for nm, t in links)])
+    if ks2 == 0:
+        return acc
+    wts = torch.tensor([float(w) for w in weights], dtype=torch.float32
+                       ).pin_memory().to(acc.device, non_blocking=True)
+    bwd = adj_fwd if adj_bwd is None else adj_bwd
+    n, h, w = acc.shape
+    launch(name, acc.device, bwd.data_ptr(), adj_fwd.data_ptr(),
+           neighbor.data_ptr(), acc.data_ptr(), wts.data_ptr(), n, h, w, ks2,
+           -1.0 if adj_bwd is None else 1.0, *args)
+    return acc
+
+
+def compose_tap(link: torch.Tensor, flow: torch.Tensor,
+                neighbor: torch.Tensor, acc: torch.Tensor, weight: float,
+                d: int | None, link_start: int, nb_start: int,
+                round_carry: bool = False):
+    """K-compose: one compose tap on the card, updating ``flow`` and
+    ``acc`` in place.
+
+    link: the whole stack of adjacent flows (B_link, 2, H, W); neighbor:
+    the whole padded stack (B_nb, H, W).  The tap reads their planes
+    ``link_start .. link_start + B - 1`` and ``nb_start .. nb_start + B -
+    1`` for flow (B, 2, H, W) and acc (B, H, W).  flow and acc are float32;
+    link and neighbor are both float32, or both bfloat16 for the packed
+    form (K-compose-bf16, ``--precision bfloat16``).  ``weight`` is rounded
+    to float32; ``round_carry`` rounds the stored flow and acc to bfloat16
+    (``--dtype bfloat16``).  Returns (flow, acc); raises for other
+    operands.
+    """
+    b = check_tap(link, flow, neighbor, acc, link_start, nb_start)
+    src = (link.dtype,) if link.dtype == torch.bfloat16 else (torch.float32,)
+    check_operands("compose_tap", [
+        ("flow", flow, (torch.float32,)), ("link", link, src),
+        ("neighbor", neighbor, src), ("acc", acc, (torch.float32,))])
+    name = ("fdt_compose_step_bf16" if link.dtype == torch.bfloat16
+            else "fdt_compose_step")
+    h, w = flow.shape[2:]
+    launch(name, flow.device, link.data_ptr(), neighbor.data_ptr(),
+           flow.data_ptr(), acc.data_ptr(), b, h, w, link_start, nb_start,
+           float(weight), 0.0 if d is None else float(d), int(d is not None),
+           int(round_carry))
+    return flow, acc
+
+
 def compose_run(adj_fwd: torch.Tensor, adj_bwd: torch.Tensor | None,
                 neighbor: torch.Tensor, acc: torch.Tensor, weights,
                 d: int | None, round_carry: bool = False) -> torch.Tensor:
-    """One whole compose pass (K-compose-run), updating ``acc`` in place.
+    """K-compose-run: one whole compose pass in one launch on the card,
+    updating ``acc`` in place.
 
     adj_fwd, adj_bwd: the adjacent flows (n + 2*ks2 - 1, 2, H, W) of the
     padded stack, ``adj_bwd`` None for symmetric adjacent flows (the
@@ -162,126 +123,30 @@ def compose_run(adj_fwd: torch.Tensor, adj_bwd: torch.Tensor | None,
     are all float32, or all bfloat16 for the packed form
     (K-compose-run-bf16, ``--precision bfloat16``); ``round_carry`` rounds
     the flow and accumulator after every tap to bfloat16 (``--dtype
-    bfloat16``).  Returns acc.
-
-    A CPU tensor takes the plain version (``compose_run_plain``), a CUDA
-    tensor the kernel; any other device raises.
+    bfloat16``).  Returns acc; raises for other operands.
     """
-    weights = [float(np.float32(w)) for w in weights]
-    ks2 = _check_run("compose_run", adj_fwd, adj_bwd, neighbor, acc, weights)
-    links = [("adj_fwd", adj_fwd)] + ([] if adj_bwd is None
-                                      else [("adj_bwd", adj_bwd)])
-    if acc.device.type == "cpu":
-        return acc.copy_(compose_run_plain(adj_fwd, adj_bwd, neighbor, acc,
-                                           weights, d, round_carry))
-    if acc.device.type != "cuda":
-        raise ValueError(f"compose_run: no kernel for device {acc.device}")
-    src = neighbor.dtype if neighbor.dtype == torch.bfloat16 else torch.float32
-    for name, t, dtype in (*((nm, t, src) for nm, t in links),
-                           ("neighbor", neighbor, src),
-                           ("acc", acc, torch.float32)):
-        if t.dtype != dtype or t.device != acc.device or not t.is_contiguous():
-            raise ValueError(f"compose_run: {name} must be contiguous {dtype} "
-                             f"on {acc.device}")
-    if ks2 == 0:
-        return acc
-    packed = src == torch.bfloat16
-    form = "compose_run_bf16" if packed else "compose_run"
-    entry = "fdt_" + form
-    # from pinned memory, so the copy does not wait for the stream to drain
-    wts = torch.tensor(weights, dtype=torch.float32).pin_memory().to(
-        acc.device, non_blocking=True)
-    bwd = adj_fwd if adj_bwd is None else adj_bwd
-    n, h, w = acc.shape
-    rc = getattr(load_library(), entry)(
-        bwd.data_ptr(), adj_fwd.data_ptr(), neighbor.data_ptr(),
-        acc.data_ptr(), wts.data_ptr(), n, h, w, ks2,
-        -1.0 if adj_bwd is None else 1.0, 0.0 if d is None else float(d),
-        int(d is not None), int(round_carry),
-        torch.cuda.current_stream(acc.device).cuda_stream)
-    check(rc, entry)
-    LAUNCHES[form] += 1
-    return acc
-
-
-def compose_chain_plain(adj_fwd: torch.Tensor, adj_bwd: torch.Tensor | None,
-                        neighbor: torch.Tensor, acc: torch.Tensor,
-                        weights) -> torch.Tensor:
-    """Plain version of K-compose-run-split: the compose pass with no bound
-    as the JAX package's tap scan runs it when it has no fused step
-    (``flowdenoising_tpu/core/axis_filter.py: _of_pass_composed``,
-    ``body_of``), in the pass dtype.
-
-    Per tap, F = (F + warp(link, F)) and acc += (warp(neighbour, F) * w),
-    each warp the exact gather (``displace_sample_xla``) and each result
-    rounded to the pass dtype, the carry F starting from zeros in the pass
-    dtype in each run; the planes and the order are ``compose_run_plain``'s
-    (``adj_bwd`` None stands for ``-adj_fwd``).  adj_*: (n + 2*ks2 - 1, 2,
-    H, W), neighbor (n + 2*ks2, H, W) and acc (n, H, W), the center tap on
-    entry, all in the pass dtype; ``weights``: 2*ks2 tap weights in that
-    dtype.  Updates acc in place and returns it."""
-    dtype = acc.dtype
-    ks2 = len(weights) // 2
-    n = acc.shape[0]
-    for sign in (-1, +1):
-        flow = torch.zeros((n, 2) + tuple(acc.shape[1:]), dtype=dtype,
-                           device=acc.device)
-        for j in range(1, ks2 + 1):
-            start = ks2 + sign * j
-            if sign > 0:
-                link = adj_fwd[start - 1:start - 1 + n]
-            else:
-                link = (-adj_fwd[start:start + n] if adj_bwd is None
-                        else adj_bwd[start:start + n])
-            flow = (flow + displace_sample_xla(link, flow[:, 0], flow[:, 1])
-                    ).to(dtype)
-            warped = displace_sample_xla(neighbor[start:start + n],
-                                         flow[:, 0], flow[:, 1])
-            acc.add_((warped * weights[ks2 * (sign > 0) + j - 1]).to(dtype))
-    return acc
+    bf16 = neighbor.dtype == torch.bfloat16
+    return _run("compose_run", "fdt_compose_run_bf16" if bf16 else
+                "fdt_compose_run", adj_fwd, adj_bwd, neighbor, acc, weights,
+                (neighbor.dtype,) if bf16 else (torch.float32,),
+                (torch.float32,), 0.0 if d is None else float(d),
+                int(d is not None), int(round_carry))
 
 
 def compose_run_split(adj_fwd: torch.Tensor, adj_bwd: torch.Tensor | None,
                       neighbor: torch.Tensor, acc: torch.Tensor,
                       weights) -> torch.Tensor:
-    """One compose pass of the split route (K-compose-run-split), updating
-    ``acc`` in place: ``compose_chain_plain``'s function, bit for bit.
+    """K-compose-run-split: one compose pass of the split route in one
+    launch on the card, updating ``acc`` in place, bit for bit
+    ``ops.compose.compose_chain_plain``.
 
     adj_fwd, adj_bwd: the adjacent flows (n + 2*ks2 - 1, 2, H, W), bfloat16,
     ``adj_bwd`` None for symmetric adjacent flows (the kernel reads adj_fwd
     with a sign instead of a negated copy); neighbor: the padded stack (n +
     2*ks2, H, W), bfloat16; acc: (n, H, W) bfloat16, the center tap on
     entry; ``weights``: 2*ks2 tap weights (offsets -1 .. -ks2, then +1 ..
-    +ks2), each bf16-exact.  Returns acc.
-
-    A CPU tensor takes the plain version (``compose_chain_plain``), a CUDA
-    tensor the kernel; any other device raises.
+    +ks2), each bf16-exact.  Returns acc; raises for other operands.
     """
-    ks2 = _check_run("compose_run_split", adj_fwd, adj_bwd, neighbor, acc,
-                     weights)
-    if acc.device.type == "cpu":
-        return compose_chain_plain(adj_fwd, adj_bwd, neighbor, acc, weights)
-    if acc.device.type != "cuda":
-        raise ValueError(f"compose_run_split: no kernel for device {acc.device}")
-    links = [("adj_fwd", adj_fwd)] + ([] if adj_bwd is None
-                                      else [("adj_bwd", adj_bwd)])
-    for name, t in (*links, ("neighbor", neighbor), ("acc", acc)):
-        if (t.dtype != torch.bfloat16 or t.device != acc.device
-                or not t.is_contiguous()):
-            raise ValueError(f"compose_run_split: {name} must be contiguous "
-                             f"torch.bfloat16 on {acc.device}")
-    if ks2 == 0:
-        return acc
-    # from pinned memory, so the copy does not wait for the stream to drain
-    wts = torch.tensor([float(w) for w in weights], dtype=torch.float32
-                       ).pin_memory().to(acc.device, non_blocking=True)
-    bwd = adj_fwd if adj_bwd is None else adj_bwd
-    n, h, w = acc.shape
-    rc = load_library().fdt_compose_run_split(
-        bwd.data_ptr(), adj_fwd.data_ptr(), neighbor.data_ptr(),
-        acc.data_ptr(), wts.data_ptr(), n, h, w, ks2,
-        -1.0 if adj_bwd is None else 1.0,
-        torch.cuda.current_stream(acc.device).cuda_stream)
-    check(rc, "fdt_compose_run_split")
-    LAUNCHES["compose_run_split"] += 1
-    return acc
+    bf16 = (torch.bfloat16,)
+    return _run("compose_run_split", "fdt_compose_run_split", adj_fwd, adj_bwd,
+                neighbor, acc, weights, bf16, bf16)

@@ -2,17 +2,18 @@
 ``flowdenoising_tpu/ops/pallas/sample.py: _sample_kernel``; CUDA source
 ``flowdenoising_tpu_torch/csrc/sample.cu``); and K-sample-split, its form
 for a bf16 source with no bound in bf16 arithmetic (the split route's tap
-warp, with the tap FMA), and their plain versions."""
+warp, with the tap FMA)."""
 
 from __future__ import annotations
 
 import torch
 
-from flowdenoising_tpu_torch.ops.cuda import LAUNCHES
-from flowdenoising_tpu_torch.ops.cuda.build import check, load_library
+from flowdenoising_tpu_torch.ops.cuda import check_operands, launch
 
 
-def _check_shapes(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+def check_shapes(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """Raise ValueError unless u, v are (B, H, W) and src (B, H, W) or (B,
+    C, H, W)."""
     if u.ndim != 3 or u.shape != v.shape:
         raise ValueError(f"u, v must both be (B, H, W); got {tuple(u.shape)} "
                          f"and {tuple(v.shape)}")
@@ -21,65 +22,53 @@ def _check_shapes(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
                          f"u {tuple(u.shape)}; got {tuple(src.shape)}")
 
 
+def check_split(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                acc: torch.Tensor | None, weight: float | None) -> None:
+    """``check_shapes``, and acc and weight given together, acc of src's
+    shape."""
+    check_shapes(src, u, v)
+    if (acc is None) != (weight is None):
+        raise ValueError("sample_split: give acc and weight together")
+    if acc is not None and acc.shape != src.shape:
+        raise ValueError(f"sample_split: acc {tuple(acc.shape)} must have "
+                         f"src's shape {tuple(src.shape)}")
+
+
+def _check_planes(what: str, u: torch.Tensor, v: torch.Tensor) -> None:
+    """u and v are (H, W) planes, each contiguous, at one batch stride."""
+    if u.stride() != v.stride() or u.stride()[1:] != (u.shape[2], 1):
+        raise ValueError(f"{what}: u and v need contiguous (H, W) planes "
+                         f"with one batch stride; got strides {u.stride()} "
+                         f"and {v.stride()}")
+
+
 def displace_sample(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                     max_displacement: int | None) -> torch.Tensor:
-    """Sample ``src`` (B, H, W) or (B, C, H, W) at (x + u, y + v) with u, v
-    (B, H, W) clamped to +-max_displacement (None: no clamp), bilinear,
-    replicate borders.
-
-    A CPU tensor takes the plain version (``ops.warp.displace_sample_plain``),
-    a CUDA tensor the kernel; any other device raises.
+    """K-sample: ``src`` (B, H, W) or (B, C, H, W) sampled at (x + u, y +
+    v) with u, v (B, H, W) clamped to +-max_displacement (None: no clamp),
+    bilinear, replicate borders, on the card.  All float32; src
+    contiguous.  Raises for other operands.
     """
-    _check_shapes(src, u, v)
-    if src.device.type == "cpu":
-        # imported here: ops.warp imports this module
-        from flowdenoising_tpu_torch.ops.warp import displace_sample_plain
-        return displace_sample_plain(src, u, v, max_displacement)
-    if src.device.type != "cuda":
-        raise ValueError(f"displace_sample: no kernel for device {src.device}")
-    for name, t in (("src", src), ("u", u), ("v", v)):
-        if t.dtype != torch.float32 or t.device != src.device:
-            raise ValueError(f"displace_sample: {name} must be float32 on "
-                             f"{src.device}; got {t.dtype} on {t.device}")
-    if not src.is_contiguous():
-        raise ValueError("displace_sample: src must be contiguous")
+    check_shapes(src, u, v)
+    f32 = (torch.float32,)
+    check_operands("displace_sample", [("src", src, f32), ("u", u, f32),
+                                       ("v", v, f32)], strided=("u", "v"))
+    _check_planes("displace_sample", u, v)
     b, h, w = u.shape
-    if u.stride() != v.stride() or u.stride()[1:] != (w, 1):
-        raise ValueError("displace_sample: u and v need contiguous (H, W) "
-                         f"planes with one batch stride; got strides "
-                         f"{u.stride()} and {v.stride()}")
     c = src.shape[1] if src.ndim == 4 else 1
     out = torch.empty_like(src)
     d = 0.0 if max_displacement is None else float(max_displacement)
-    rc = load_library().fdt_sample(
-        src.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, c, h, w, u.stride(0), d, int(max_displacement is not None),
-        torch.cuda.current_stream(src.device).cuda_stream)
-    check(rc, "fdt_sample")
-    LAUNCHES["sample"] += 1
+    launch("fdt_sample", src.device, src.data_ptr(), u.data_ptr(),
+           v.data_ptr(), out.data_ptr(), b, c, h, w, u.stride(0), d,
+           int(max_displacement is not None))
     return out
-
-
-def sample_split_plain(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                       acc: torch.Tensor | None = None,
-                       weight: float | None = None) -> torch.Tensor:
-    """Plain version of K-sample-split: ``displace_sample_xla(src, u, v)``,
-    the exact gather in the source's bf16 arithmetic; with ``acc``, the
-    pass's tap FMA ``acc += (warped * weight).to(acc.dtype)`` in place,
-    returning acc."""
-    # imported here: ops.warp imports this module
-    from flowdenoising_tpu_torch.ops.warp import displace_sample_xla
-    warped = displace_sample_xla(src, u, v)
-    if acc is None:
-        return warped
-    return acc.add_((warped * weight).to(acc.dtype))
 
 
 def sample_split(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                  acc: torch.Tensor | None = None,
                  weight: float | None = None) -> torch.Tensor:
     """K-sample-split: ``src`` (B, H, W) or (B, C, H, W) bfloat16 sampled
-    at (x + u, y + v) with no bound, in bf16 arithmetic as
+    at (x + u, y + v) with no bound on the card, in bf16 arithmetic as
     ``ops.warp.displace_sample_xla`` (bf16 pixel coordinates; every
     operation rounded to bf16 with bf16 u, v; float32 coordinates and lerps
     with float32 u, v, ``v01 - v00`` still rounded to bf16).  u, v: (B, H,
@@ -88,50 +77,24 @@ def sample_split(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     Without ``acc`` returns the sample, bfloat16 with bf16 u, v, else
     float32.  With ``acc`` (src's shape, bfloat16) adds ``(sample *
     weight)`` rounded to bf16 into it in place (the split route's tap FMA;
-    ``weight`` bf16-exact) and returns acc.
-
-    A CPU tensor takes the plain version (``sample_split_plain``), a CUDA
-    tensor the kernel; any other device raises.
+    ``weight`` bf16-exact) and returns acc.  Raises for other operands.
     """
-    _check_shapes(src, u, v)
-    if (acc is None) != (weight is None):
-        raise ValueError("sample_split: give acc and weight together")
-    if acc is not None and acc.shape != src.shape:
-        raise ValueError(f"sample_split: acc {tuple(acc.shape)} must have "
-                         f"src's shape {tuple(src.shape)}")
-    if src.device.type == "cpu":
-        return sample_split_plain(src, u, v, acc, weight)
-    if src.device.type != "cuda":
-        raise ValueError(f"sample_split: no kernel for device {src.device}")
-    checks = [("src", src, (torch.bfloat16,)),
-              ("u", u, (torch.bfloat16, torch.float32)),
-              ("v", v, (u.dtype,))]
-    if acc is not None:
-        checks.append(("acc", acc, (torch.bfloat16,)))
-    for name, t, dtypes in checks:
-        if t.dtype not in dtypes or t.device != src.device:
-            raise ValueError(f"sample_split: {name} must be "
-                             f"{' or '.join(map(str, dtypes))} on "
-                             f"{src.device}; got {t.dtype} on {t.device}")
-    if not src.is_contiguous() or (acc is not None and not acc.is_contiguous()):
-        raise ValueError("sample_split: src and acc must be contiguous")
+    check_split(src, u, v, acc, weight)
+    check_operands("sample_split", [
+        ("src", src, (torch.bfloat16,)),
+        ("u", u, (torch.bfloat16, torch.float32)), ("v", v, (u.dtype,)),
+        *([] if acc is None else [("acc", acc, (torch.bfloat16,))])],
+        strided=("u", "v"))
+    _check_planes("sample_split", u, v)
     b, h, w = u.shape
-    if u.stride() != v.stride() or u.stride()[1:] != (w, 1):
-        raise ValueError("sample_split: u and v need contiguous (H, W) "
-                         f"planes with one batch stride; got strides "
-                         f"{u.stride()} and {v.stride()}")
     c = src.shape[1] if src.ndim == 4 else 1
     flow_bf16 = u.dtype == torch.bfloat16
     out = None
     if acc is None:
         out = torch.empty(src.shape, device=src.device,
                           dtype=torch.bfloat16 if flow_bf16 else torch.float32)
-    rc = load_library().fdt_sample_split(
-        src.data_ptr(), u.data_ptr(), v.data_ptr(), int(flow_bf16),
-        None if out is None else out.data_ptr(),
-        None if acc is None else acc.data_ptr(),
-        0.0 if weight is None else float(weight), b, c, h, w, u.stride(0),
-        torch.cuda.current_stream(src.device).cuda_stream)
-    check(rc, "fdt_sample_split")
-    LAUNCHES["sample_split"] += 1
+    launch("fdt_sample_split", src.device, src.data_ptr(), u.data_ptr(),
+           v.data_ptr(), int(flow_bf16), None if out is None else out.data_ptr(),
+           None if acc is None else acc.data_ptr(),
+           0.0 if weight is None else float(weight), b, c, h, w, u.stride(0))
     return acc if out is None else out

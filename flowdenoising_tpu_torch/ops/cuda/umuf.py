@@ -14,8 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from flowdenoising_tpu_torch.ops.cuda import LAUNCHES
-from flowdenoising_tpu_torch.ops.cuda.build import check, load_library
+from flowdenoising_tpu_torch.ops.cuda import check_operands, launch
 
 # Shared memory of one H100 SM, what one block may take, and what the card
 # reserves a block: two blocks of at most SMEM_TWO_BLOCKS fit on an SM.
@@ -109,12 +108,26 @@ def plan_umuf(h: int, w: int, winsize: int, iters: int,
                      "holds")
 
 
+def check_shapes(what: str, r0: torch.Tensor, r1: torch.Tensor,
+                 flow: torch.Tensor) -> tuple[int, int, int]:
+    """(B, H, W) of a Farneback iteration's operands, r0 and r1 (B, 5, H,
+    W) and flow (B, 2, H, W); raises ValueError for other shapes."""
+    b, _, h, w = flow.shape
+    if (r0.shape != (b, 5, h, w) or r1.shape != r0.shape
+            or flow.shape != (b, 2, h, w)):
+        raise ValueError(f"{what}: expected r0, r1 (B, 5, H, W) and flow "
+                         f"(B, 2, H, W); got {tuple(r0.shape)}, "
+                         f"{tuple(r1.shape)}, {tuple(flow.shape)}")
+    return b, h, w
+
+
 def umuf_iterate(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
                  iters: int, d: int | None, winsize: int,
                  per_launch: int | None = None,
                  ramp_bf16: bool = False) -> torch.Tensor:
-    """``iters`` Farneback iterations ``flow <- update_flow(update_matrices(
-    r0, r1, flow, d), winsize)``.
+    """K-umuf: ``iters`` Farneback iterations ``flow <- update_flow(
+    update_matrices(r0, r1, flow, d), winsize)`` on the card, as
+    ``plan_umuf`` plans them, ``per_launch`` iterations a launch if given.
 
     r0, r1: (B, 5, H, W) polynomial expansions of target and reference;
     flow: (B, 2, H, W), channel 0 = x.  r0 and flow are float32; r1 is
@@ -122,38 +135,16 @@ def umuf_iterate(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
     bfloat16``), which samples it in float32.  ``d`` bounds the sampling
     displacement (None: no clamp).  ``ramp_bf16`` rounds the border ramp to
     bfloat16 (a bf16 pass's tiny levels).  Returns a new (B, 2, H, W) flow.
-
-    A CPU tensor takes the plain version (``ops.farneback.
-    umuf_iterate_plain``); a CUDA tensor runs the kernel as ``plan_umuf``
-    plans it, ``per_launch`` iterations a launch if given; any other device
-    raises, and so does a winsize whose window halo does not fit the
-    kernel's shared memory.
+    Raises for other operands, and for a winsize whose window halo does not
+    fit the kernel's shared memory.
     """
-    b, _, h, w = flow.shape
-    if (r0.shape != (b, 5, h, w) or r1.shape != r0.shape
-            or flow.shape != (b, 2, h, w)):
-        raise ValueError(f"umuf_iterate: expected r0, r1 (B, 5, H, W) and "
-                         f"flow (B, 2, H, W); got {tuple(r0.shape)}, "
-                         f"{tuple(r1.shape)}, {tuple(flow.shape)}")
-    if r0.device.type == "cpu":
-        # imported here: ops.farneback imports this module
-        from flowdenoising_tpu_torch.ops.farneback import umuf_iterate_plain
-        return umuf_iterate_plain(r0, r1, flow, iters, d, winsize, ramp_bf16)
-    if r0.device.type != "cuda":
-        raise ValueError(f"umuf_iterate: no kernel for device {r0.device}")
-    for name, t, dtypes in (("r0", r0, (torch.float32,)),
-                            ("r1", r1, (torch.float32, torch.bfloat16)),
-                            ("flow", flow, (torch.float32,))):
-        if (t.dtype not in dtypes or t.device != r0.device
-                or not t.is_contiguous()):
-            raise ValueError(f"umuf_iterate: {name} must be contiguous "
-                             f"{' or '.join(map(str, dtypes))} on {r0.device}")
-    if b > 65535:
-        raise ValueError(f"umuf_iterate: batch {b} exceeds the grid's 65535")
+    b, h, w = check_shapes("umuf_iterate", r0, r1, flow)
+    check_operands("umuf_iterate", [
+        ("r0", r0, (torch.float32,)),
+        ("r1", r1, (torch.float32, torch.bfloat16)),
+        ("flow", flow, (torch.float32,))], batch=b)
     plan = plan_umuf(h, w, winsize, iters, per_launch)
-    form = "umuf_bf16" if r1.dtype == torch.bfloat16 else "umuf"
-    launch = getattr(load_library(), "fdt_" + form)
-    stream = torch.cuda.current_stream(r0.device).cuda_stream
+    name = "fdt_umuf_bf16" if r1.dtype == torch.bfloat16 else "fdt_umuf"
     clamp = int(d is not None)
     dval = 0.0 if d is None else float(d)
     inv_ws2 = float(np.float32(1.0 / float(winsize * winsize)))
@@ -161,11 +152,8 @@ def umuf_iterate(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
     cur = flow
     for i, k in enumerate(plan.launches):
         nxt = bufs[i % 2]
-        rc = launch(
-            r0.data_ptr(), r1.data_ptr(), cur.data_ptr(), nxt.data_ptr(),
-            b, h, w, dval, clamp, int(ramp_bf16), winsize, inv_ws2, k,
-            plan.tile_y, plan.tile_x, plan.threads, stream)
-        check(rc, "fdt_" + form)
-        LAUNCHES[form] += 1
+        launch(name, r0.device, r0.data_ptr(), r1.data_ptr(), cur.data_ptr(),
+               nxt.data_ptr(), b, h, w, dval, clamp, int(ramp_bf16), winsize,
+               inv_ws2, k, plan.tile_y, plan.tile_x, plan.threads)
         cur = nxt
     return cur

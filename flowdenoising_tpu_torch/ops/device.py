@@ -1,5 +1,7 @@
 """Where an entry point computes: a tensor on its own device, anything else
-on the device the caller names (CUDA unless the caller asks for the CPU)."""
+on the device the caller names (CUDA unless the caller asks for the CPU);
+and whether an operation runs its hand-written kernel there or its plain
+PyTorch version (``use_kernel``)."""
 
 from __future__ import annotations
 
@@ -18,6 +20,18 @@ def require_device(device) -> torch.device:
                            "(pass device=\"cpu\" to run the plain PyTorch "
                            "versions on the CPU)")
     return device
+
+
+def use_kernel(t: torch.Tensor, what: str, float32: bool = False) -> bool:
+    """Whether ``what`` runs its kernel (``ops.cuda``) on ``t``, not its
+    plain version: for a CUDA tensor, of dtype float32 with ``float32``;
+    never for a CPU tensor.  Raises ValueError for any other device: no
+    kernel, and no silent substitute."""
+    if t.device.type == "cuda":
+        return not float32 or t.dtype == torch.float32
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{what}: no kernel for device {t.device}")
 
 
 def as_tensors(*xs, device="cuda", dtype=torch.float32) -> tuple:

@@ -12,13 +12,12 @@ Counterpart of ``flowdenoising_tpu/ops/farneback.py``; the algorithm of
 4. ``flow_from_pyramids``: coarse to fine over the pyramid levels, 2+3
    iterated ``cfg.iterations`` times per level.
 
-``update_matrices_plain`` and ``update_flow_plain`` are the plain versions
-of the kernels K-um and K-uf (wrappers ``update_matrices`` and
-``update_flow`` in ``ops.cuda.um``, ``ops.cuda.uf``).  With a bound, or in
-float32, the solver fuses 2+3: on a CUDA tensor each level's iterations
-run in K-umuf (``ops.cuda.umuf.umuf_iterate``) on every level, the smallest
-included; ``umuf_iterate_plain`` is its plain version.  K-um and K-uf run
-only in the ``-v 2`` stage report.
+Each stage with a hand-written kernel (``ops.cuda``) runs it on a CUDA
+tensor and its plain version, the ``*_plain`` function here, on a CPU
+tensor (``ops.device.use_kernel``): ``update_matrices`` K-um and
+``update_flow`` K-uf (only in the ``-v 2`` stage report), ``umuf_iterate``
+K-umuf (2+3 fused, which the solver runs on every level with a bound or
+in float32) and ``expand_level`` K-polyexp.
 
 Layout: channel-first with the batch leading -- expansions (B, 5, H, W),
 flows (B, 2, H, W) with channel 0 = x -- so one slice range of a stack's
@@ -40,8 +39,8 @@ The bf16 fast mode, as the JAX package runs it on the TPU:
   in its Pallas kernel B5 on a float32 copy of M, which returns a float32
   flow.  The port runs both phases of all a level's iterations in one
   kernel, K-umuf-split (``split_iterate`` ->
-  ``ops.cuda.umuf_split.umuf_split_iterate``, planned as K-umuf), which
-  rounds where that chain rounds; ``split_iterate_plain`` is its plain
+  ``ops.cuda.umuf_split``, planned as K-umuf), which rounds where that
+  chain rounds; ``split_iterate_plain`` is its plain
   version, the chain itself: ``update_matrices_xla`` then
   ``update_flow_plain``.
 """
@@ -56,14 +55,14 @@ import torch
 
 from flowdenoising_tpu_torch.config import FlowConfig
 from flowdenoising_tpu_torch.ops.blur import (
-    _sep_correlate, box_blur_sum, corr1d, rounded, smooth_kernel_for_level)
-from flowdenoising_tpu_torch.ops.cuda.polyexp import (
-    pyramid as kernel_pyramid, takes as kernel_pyramid_takes)
-from flowdenoising_tpu_torch.ops.cuda.uf import update_flow
-from flowdenoising_tpu_torch.ops.cuda.um import update_matrices
-from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
-from flowdenoising_tpu_torch.ops.cuda.umuf_split import umuf_split_iterate
-from flowdenoising_tpu_torch.ops.device import as_tensors
+    _sep_correlate, box_blur_sum, corr1d, pyr_blur, rounded,
+    smooth_kernel_for_level)
+from flowdenoising_tpu_torch.ops.cuda import polyexp as k_polyexp
+from flowdenoising_tpu_torch.ops.cuda import uf as k_uf
+from flowdenoising_tpu_torch.ops.cuda import um as k_um
+from flowdenoising_tpu_torch.ops.cuda import umuf as k_umuf
+from flowdenoising_tpu_torch.ops.cuda import umuf_split as k_umuf_split
+from flowdenoising_tpu_torch.ops.device import as_tensors, use_kernel
 from flowdenoising_tpu_torch.ops.resize import (
     _full_float32, pyramid_sizes, resize_area, resize_linear)
 from flowdenoising_tpu_torch.ops.warp import (
@@ -143,6 +142,19 @@ def poly_expand(img: torch.Tensor, n: int = 5, sigma: float = 1.2,
         b1 * ig03 + b4 * ig33,
         b6 * ig55,
     ], dim=-3 if channel_first else -1)
+
+
+def expand_level(img: torch.Tensor, n: int, sigma: float,
+                 blur=None) -> torch.Tensor:
+    """``poly_expand(img, n, sigma, channel_first=True)``, contiguous, of
+    (..., H, W) pre-blurred by the reflect-101 ``blur`` taps where given:
+    K-polyexp on a CUDA float32 stack, bit for bit this chain elsewhere."""
+    if use_kernel(img, "expand_level", float32=True):
+        return k_polyexp.expand_level(
+            img, n, poly_exp_constants(n, float(sigma)), blur)
+    if blur is not None:
+        img = _sep_correlate(img, blur, blur, "reflect")
+    return poly_expand(img, n, sigma, channel_first=True).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -233,6 +245,16 @@ def update_matrices_plain(r0: torch.Tensor, r1: torch.Tensor,
     return _normal_equations(r0, s, inb, dx, dy, scale)
 
 
+def update_matrices(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
+                    max_displacement: int | None = None) -> torch.Tensor:
+    """M (B, 5, H, W) of r0, r1 (B, 5, H, W) and flow (B, 2, H, W): K-um
+    on a CUDA tensor, ``update_matrices_plain`` on a CPU one."""
+    if use_kernel(r0, "update_matrices"):
+        return k_um.update_matrices(r0, r1, flow, max_displacement)
+    k_umuf.check_shapes("update_matrices", r0, r1, flow)
+    return update_matrices_plain(r0, r1, flow, max_displacement)
+
+
 def update_matrices_xla(r0: torch.Tensor, r1: torch.Tensor,
                         flow: torch.Tensor) -> torch.Tensor:
     """Phase 1 with no bound as the JAX package's ``update_matrices(r0, r1,
@@ -270,6 +292,15 @@ def update_flow_plain(m: torch.Tensor, winsize: int) -> torch.Tensor:
     return torch.stack([u, v], dim=-3)
 
 
+def update_flow(m: torch.Tensor, winsize: int) -> torch.Tensor:
+    """The flow (B, 2, H, W) of M (B, 5, H, W): K-uf on a CUDA tensor,
+    ``update_flow_plain`` on a CPU one."""
+    if use_kernel(m, "update_flow"):
+        return k_uf.update_flow(m, winsize)
+    k_uf.check_shapes(m)
+    return update_flow_plain(m, winsize)
+
+
 def split_iterate_plain(r0: torch.Tensor, r1: torch.Tensor,
                         flow: torch.Tensor, iters: int,
                         winsize: int) -> torch.Tensor:
@@ -287,10 +318,14 @@ def split_iterate(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
                   iters: int, winsize: int) -> torch.Tensor:
     """The split route's ``iters`` iterations at one level (r0, r1 bf16
     (B, 5, H, W), flow bf16 or float32 (B, 2, H, W)) in the profiler range
-    ``SOLVE_RANGE``: K-umuf-split on the card, ``split_iterate_plain`` on
-    the CPU (``umuf_split_iterate``).  Returns the float32 flow."""
+    ``SOLVE_RANGE``: K-umuf-split on a CUDA tensor, ``split_iterate_plain``
+    on a CPU one.  Returns the float32 flow."""
     with span(SOLVE_RANGE):
-        return umuf_split_iterate(r0, r1, flow, iters, winsize)
+        if use_kernel(r0, "split_iterate"):
+            return k_umuf_split.umuf_split_iterate(r0, r1, flow, iters,
+                                                   winsize)
+        k_umuf.check_shapes("split_iterate", r0, r1, flow)
+        return split_iterate_plain(r0, r1, flow, iters, winsize)
 
 
 def umuf_iterate_plain(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
@@ -302,6 +337,18 @@ def umuf_iterate_plain(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
         flow = update_flow_plain(
             update_matrices_plain(r0, r1, flow, d, ramp_bf16), winsize)
     return flow
+
+
+def umuf_iterate(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
+                 iters: int, d: int | None, winsize: int,
+                 ramp_bf16: bool = False) -> torch.Tensor:
+    """``iters`` iterations at one level (r1 bfloat16 for the packed form):
+    K-umuf on a CUDA tensor, ``umuf_iterate_plain`` on a CPU one."""
+    if use_kernel(r0, "umuf_iterate"):
+        return k_umuf.umuf_iterate(r0, r1, flow, iters, d, winsize,
+                                   ramp_bf16=ramp_bf16)
+    k_umuf.check_shapes("umuf_iterate", r0, r1, flow)
+    return umuf_iterate_plain(r0, r1, flow, iters, d, winsize, ramp_bf16)
 
 
 def _level_displacement(cfg: FlowConfig, level: int) -> int | None:
@@ -429,16 +476,23 @@ def image_pyramid(img: torch.Tensor, cfg: FlowConfig) -> list[torch.Tensor]:
 
 def polyexp_pyramid(img: torch.Tensor, cfg: FlowConfig) -> list[torch.Tensor]:
     """Per-level expansions (..., 5, h_k, w_k) of (..., H, W) images, in
-    the profiler range ``EXPANSION_RANGE``: on a CUDA float32 stack in the
-    kernels K-pyr-blur and K-polyexp (``ops.cuda.polyexp.pyramid``, bit for
-    bit the plain chain), else ``poly_expand`` of each ``image_pyramid``
-    level, the kernels' plain version."""
+    the profiler range ``EXPANSION_RANGE``, bit for bit ``poly_expand`` of
+    each ``image_pyramid`` level: level 0 is the expansion with its 3-tap
+    pre-blur; a level k >= 1 the level's pre-blur at full resolution
+    (``pyr_blur``), ``resize_linear`` to its size, and the expansion, in
+    K-pyr-blur, K-resize and K-polyexp on a CUDA float32 stack.  At most one
+    full-resolution smoothed stack is held at a time."""
+    h, w = img.shape[-2], img.shape[-1]
+    sizes = pyramid_sizes(h, w, cfg.clamped_levels(h, w), cfg.pyr_scale)
+    n, sigma = cfg.poly_n, cfg.poly_sigma
     with span(EXPANSION_RANGE):
-        if kernel_pyramid_takes(img):
-            return kernel_pyramid(img, cfg)
-        return [poly_expand(i, cfg.poly_n, cfg.poly_sigma,
-                            channel_first=True).contiguous()
-                for i in image_pyramid(img, cfg)]
+        out = [expand_level(img, n, sigma,
+                            blur=smooth_kernel_for_level(0, cfg.pyr_scale))]
+        for k in range(1, len(sizes)):
+            taps = smooth_kernel_for_level(k, cfg.pyr_scale)
+            out.append(expand_level(
+                resize_linear(pyr_blur(img, taps), sizes[k]), n, sigma))
+        return out
 
 
 def flow_from_pyramids(r0_levels: list[torch.Tensor],

@@ -11,11 +11,11 @@ compute it:
   ``csrc/resize.cu``): one launch a resize, a gather over each axis's tap
   table (``tap_table``: for each output index the first source index and a
   fixed-width run of the matrix's own float32 weights), copied to the card
-  at a shape's first use and kept there.  It sums as a sequential
-  multiply-add product does, rows first, so for finite inputs its bits are
-  the dense products' wherever cuBLAS sums in order, as it does at every
-  resize of the benchmark's passes (it splits the sums of some single
-  planes).
+  at a shape's first use and kept there (``device_table``).  It sums as a
+  sequential multiply-add product does, rows first, so for finite inputs
+  its bits are the dense products' wherever cuBLAS sums in order, as it
+  does at every resize of the benchmark's passes (it splits the sums of
+  some single planes).
 - Every other tensor, a CPU or bfloat16 one, takes the dense products
   (``_apply_separable``), which stay as K-resize's plain version.  They run
   in full float32 whatever the process has set, as the JAX package pins
@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from flowdenoising_tpu_torch.ops.cuda import resize as kernel
+from flowdenoising_tpu_torch.ops.device import use_kernel
 from flowdenoising_tpu_torch.utils.tracing import RESIZE_RANGE, span
 
 
@@ -114,6 +115,19 @@ def tap_table(kind: str, n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]
     return start, weights
 
 
+@functools.cache
+def device_table(kind: str, n_in: int, n_out: int,
+                 device: torch.device) -> tuple[torch.Tensor, int]:
+    """K-resize's table of one axis on ``device``: (n_out int32 starts
+    followed by the n_out x taps float32 weights' bits, taps), copied in an
+    ``fdt.drain.resize_matrix`` span at its first use and kept for the
+    process, so that a later resize of the same shape holds no drain."""
+    starts, weights = tap_table(kind, n_in, n_out)
+    buf = np.concatenate([starts, weights.reshape(-1).view(np.int32)])
+    with span("fdt.drain.resize_matrix"):
+        return torch.from_numpy(buf).to(device), weights.shape[1]
+
+
 # The float32 matrix-product settings that torch.set_float32_matmul_precision
 # and torch.backends.fp32_precision reach: "high" or "medium" turns on TF32
 # on CUDA, and "medium" bfloat16 products in oneDNN on the CPU.
@@ -161,15 +175,17 @@ def _apply_separable(img: torch.Tensor, wr: np.ndarray,
 
 def _resize(img: torch.Tensor, kind: str, out_hw: tuple[int, int]) -> torch.Tensor:
     """The trailing two axes resized to ``out_hw`` in the range
-    ``fdt.resize``: K-resize where ``kernel.takes(img)``, else the dense
+    ``fdt.resize``: K-resize on a CUDA float32 tensor, else the dense
     products; img itself where the shape is already ``out_hw``."""
     h_in, w_in = img.shape[-2], img.shape[-1]
     h_out, w_out = out_hw
     if (h_in, w_in) == (h_out, w_out):
         return img
     with span(RESIZE_RANGE):
-        if kernel.takes(img):
-            return kernel.resize(img, kind, (h_out, w_out))
+        if use_kernel(img, "resize", float32=True):
+            return kernel.resize(img, (h_out, w_out),
+                                 device_table(kind, h_in, h_out, img.device),
+                                 device_table(kind, w_in, w_out, img.device))
         matrix = _MATRICES[kind]
         return _apply_separable(img, matrix(h_in, h_out), matrix(w_in, w_out))
 

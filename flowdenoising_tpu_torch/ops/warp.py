@@ -8,18 +8,18 @@ TPU; on |u|, |v| <= D it is the same function as the clamped gather here.
 
 ``warp_slices``, ``displace_sample`` and ``bilinear_displace_windowed``
 take any leading dimensions, broadcast as in the JAX package, and fold
-them into the (B, [C,] H, W) shapes of K-sample (the wrapper
-``ops.cuda.sample.displace_sample``), which runs on a CUDA tensor; a CPU
+them into the (B, [C,] H, W) shapes of K-sample
+(``ops.cuda.sample.displace_sample``), which runs on a CUDA tensor; a CPU
 tensor takes its plain version, ``displace_sample_plain``.  An input that
 is not a tensor goes to ``device``.
 
 A bfloat16 source with no bound is sampled as the JAX package samples it
 there, with its exact gather in bf16 arithmetic, coordinates included
-(``displace_sample_xla``): on a CUDA tensor by K-sample-split (the wrapper
-``ops.cuda.sample.sample_split``), on a CPU tensor by
-``displace_sample_xla`` itself.  The result is bf16 with bf16 flows and
-float32 with float32 flows.  A float32 source, or a bf16 one with a bound,
-takes K-sample.
+(``displace_sample_xla``): on a CUDA tensor by K-sample-split
+(``ops.cuda.sample.sample_split``), on a CPU tensor by its plain version
+``sample_split_plain``.  The result is bf16 with bf16 flows and float32
+with float32 flows.  A float32 source, or a bf16 one with a bound, takes
+K-sample.
 """
 
 from __future__ import annotations
@@ -28,8 +28,8 @@ import math
 
 import torch
 
-from flowdenoising_tpu_torch.ops.cuda import sample as _k_sample
-from flowdenoising_tpu_torch.ops.device import as_tensors
+from flowdenoising_tpu_torch.ops.cuda import sample as kernel
+from flowdenoising_tpu_torch.ops.device import as_tensors, use_kernel
 from flowdenoising_tpu_torch.utils.tracing import WARP_RANGE
 
 __all__ = ["WARP_RANGE", "bilinear_displace_windowed", "bilinear_sample",
@@ -111,6 +111,31 @@ def displace_sample_xla(src: torch.Tensor, u: torch.Tensor,
     return bilinear_sample(src, u + gx, v + gy)
 
 
+def sample_split_plain(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                       acc: torch.Tensor | None = None,
+                       weight: float | None = None) -> torch.Tensor:
+    """Plain version of K-sample-split: ``displace_sample_xla(src, u, v)``,
+    the exact gather in the source's bf16 arithmetic; with ``acc``, the
+    pass's tap FMA ``acc += (warped * weight).to(acc.dtype)`` in place,
+    returning acc."""
+    warped = displace_sample_xla(src, u, v)
+    if acc is None:
+        return warped
+    return acc.add_((warped * weight).to(acc.dtype))
+
+
+def sample_split(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                 acc: torch.Tensor | None = None,
+                 weight: float | None = None) -> torch.Tensor:
+    """K-sample-split (``ops.cuda.sample.sample_split``, whose docstring
+    gives the operands and the tap FMA into ``acc``) on a CUDA tensor,
+    ``sample_split_plain`` on a CPU one."""
+    if use_kernel(src, "sample_split"):
+        return kernel.sample_split(src, u, v, acc, weight)
+    kernel.check_split(src, u, v, acc, weight)
+    return sample_split_plain(src, u, v, acc, weight)
+
+
 def _lead(t: torch.Tensor, nd: int) -> tuple:
     """``t``'s leading dims (all but the last two), padded with 1s to
     ``nd``."""
@@ -150,10 +175,12 @@ def _sample(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     vv = v.reshape(vb[:k] + (h, w)).expand(outer + (h, w)).reshape(b, h, w)
     if uu.stride() != vv.stride() or uu.stride()[1:] != (w, 1):
         uu, vv = uu.contiguous(), vv.contiguous()
-    if split:
-        out = _k_sample.sample_split(src, uu, vv)
+    if use_kernel(src, "displace_sample"):
+        out = (kernel.sample_split(src, uu, vv) if split else
+               kernel.displace_sample(src, uu, vv, max_displacement))
     else:
-        out = _k_sample.displace_sample(src, uu, vv, max_displacement)
+        out = (sample_split_plain(src, uu, vv) if split else
+               displace_sample_plain(src, uu, vv, max_displacement))
     return out.reshape(batch + (h, w))
 
 

@@ -77,8 +77,9 @@ def main() -> int:
     import torch
 
     from flowdenoising_tpu_torch.ops import farneback as F
+    from flowdenoising_tpu_torch.ops.cuda import bind
     from flowdenoising_tpu_torch.ops.cuda.build import (
-        ARCH_FLAGS, COMPILE_FLAGS, SIGNATURES, nvcc_path)
+        ARCH_FLAGS, COMPILE_FLAGS, nvcc_path)
     from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf
 
     if not torch.cuda.is_available():
@@ -112,8 +113,7 @@ def main() -> int:
         lib = ctypes.CDLL(str(so))
         for e in ENTRIES:
             if hasattr(lib, e):
-                fn = getattr(lib, e)
-                fn.argtypes, fn.restype = SIGNATURES[e]
+                bind(lib, e)
         libs[name] = lib
     if args.vs:
         return compare(libs, torch, F, plan_umuf)

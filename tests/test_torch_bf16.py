@@ -47,7 +47,7 @@ from flowdenoising_tpu_torch.core.pipeline import denoise
 from flowdenoising_tpu_torch.io.mrc import read_mrc, write_mrc
 from flowdenoising_tpu_torch.ops import cuda as K
 from flowdenoising_tpu_torch.ops import farneback as F
-from flowdenoising_tpu_torch.ops.cuda.compose import compose_tap, compose_tap_plain
+from flowdenoising_tpu_torch.ops.compose import compose_tap, compose_tap_plain
 
 torch.set_num_threads(1)
 

@@ -38,7 +38,7 @@ from flowdenoising_tpu_torch.core.pipeline import denoise
 from flowdenoising_tpu_torch.io.mrc import read_mrc, write_mrc
 from flowdenoising_tpu_torch.kernels import get_gaussian_kernel
 from flowdenoising_tpu_torch.ops import cuda as K
-from flowdenoising_tpu_torch.ops.cuda.compose import compose_tap, compose_tap_plain
+from flowdenoising_tpu_torch.ops.compose import compose_tap, compose_tap_plain
 
 torch.set_num_threads(1)
 

@@ -34,7 +34,7 @@ from flowdenoising_tpu_torch.core.axis_filter import (
 from flowdenoising_tpu_torch.kernels import get_gaussian_kernel
 from flowdenoising_tpu_torch.ops import cuda as K
 from flowdenoising_tpu_torch.ops.blur import rounded
-from flowdenoising_tpu_torch.ops.cuda.compose import (
+from flowdenoising_tpu_torch.ops.compose import (
     compose_run, compose_run_plain, compose_tap)
 from flowdenoising_tpu_torch.ops.farneback import (
     flow_from_pyramids, polyexp_pyramid)

@@ -24,7 +24,7 @@ from split_tap import BF16, rb, split_sample, split_tap
 
 from flowdenoising_tpu_torch.ops import cuda as K
 from flowdenoising_tpu_torch.ops.blur import rounded
-from flowdenoising_tpu_torch.ops.cuda.compose import (
+from flowdenoising_tpu_torch.ops.compose import (
     compose_chain_plain, compose_run_plain, compose_run_split)
 
 torch.set_num_threads(1)

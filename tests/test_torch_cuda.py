@@ -23,19 +23,20 @@ from flowdenoising_tpu_torch.config import FilterConfig, FlowConfig
 from flowdenoising_tpu_torch.core.pipeline import denoise
 from flowdenoising_tpu_torch.ops import cuda as K
 from flowdenoising_tpu_torch.ops import farneback as F
+from flowdenoising_tpu_torch.ops.compose import (
+    compose_chain_plain, compose_run_plain, compose_tap_plain)
 from flowdenoising_tpu_torch.ops.cuda.compose import (
-    compose_chain_plain, compose_run, compose_run_plain, compose_run_split,
-    compose_tap, compose_tap_plain)
+    compose_run, compose_run_split, compose_tap)
 from flowdenoising_tpu_torch.ops.cuda.uf import update_flow
 from flowdenoising_tpu_torch.ops.cuda.um import update_matrices
-from flowdenoising_tpu_torch.ops.cuda.build import load_library
 from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf, umuf_iterate
 from flowdenoising_tpu_torch.ops.cuda.umuf_split import (
     plan_split, umuf_split_iterate)
 from flowdenoising_tpu_torch.ops.resize import resize_area, resize_linear
 from flowdenoising_tpu_torch.ops.cuda.sample import (
-    displace_sample, sample_split, sample_split_plain)
-from flowdenoising_tpu_torch.ops.warp import displace_sample_plain
+    displace_sample, sample_split)
+from flowdenoising_tpu_torch.ops.warp import (
+    displace_sample_plain, sample_split_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -83,7 +84,7 @@ def test_umuf_kernel_matches_plain(dev, b, h, w, winsize, d, per_launch):
                        channel_first=True).contiguous()
     flow = _t(r.normal(size=(b, 2, h, w)) * 2, dev)
     plan = plan_umuf(h, w, winsize, 3, per_launch)
-    assert plan.smem == load_library().fdt_umuf_smem(
+    assert plan.smem == K.entry("fdt_umuf_smem")(
         h, w, winsize, plan.per_launch, plan.tile_y, plan.tile_x)
     before = K.LAUNCHES["umuf"]
     out = umuf_iterate(rr[0], rr[1], flow, 3, d, winsize, per_launch)
@@ -113,7 +114,7 @@ def test_umuf_split_kernel_matches_plain(dev, b, h, w, winsize, per_launch,
     flow[:, 1, :, : w // 3] -= 40
     flow = _t(flow, dev).to(getattr(torch, flow_dtype))
     plan = plan_split(h, w, winsize, 3, per_launch)
-    assert plan.smem == load_library().fdt_umuf_smem(
+    assert plan.smem == K.entry("fdt_umuf_smem")(
         h, w, winsize, plan.per_launch, plan.tile_y, plan.tile_x)
     before = dict(K.LAUNCHES)
     out = umuf_split_iterate(rr[0], rr[1], flow, 3, winsize, per_launch)
@@ -202,7 +203,7 @@ def test_umuf_bf16_kernel_matches_plain(dev, b, h, w, winsize, d, ramp_bf16):
     flow[:, 0, : h // 4] += 2 * d + 3          # a band beyond +-d
     flow = _t(flow, dev)
     plan = plan_umuf(h, w, winsize, 3)
-    assert plan.smem == load_library().fdt_umuf_smem(
+    assert plan.smem == K.entry("fdt_umuf_smem")(
         h, w, winsize, plan.per_launch, plan.tile_y, plan.tile_x)
     before = dict(K.LAUNCHES)
     out = umuf_iterate(rr[0], r1, flow, 3, d, winsize, ramp_bf16=ramp_bf16)
@@ -699,11 +700,11 @@ def test_polyexp_wrappers_refuse_what_they_do_not_take(dev):
     x = torch.zeros(2, 16, 16, device=dev)
     before = dict(K.LAUNCHES)
     with pytest.raises(ValueError):
-        expand_level(x.to(torch.bfloat16), 5, 1.2)
+        expand_level(x.to(torch.bfloat16), 5, F.poly_exp_constants(5, 1.2))
     with pytest.raises(ValueError):
-        expand_level(x, 0, 1.2)          # no Gram matrix to invert
+        expand_level(x, 0, F.poly_exp_constants(0, 1.2))   # no Gram matrix
     with pytest.raises(ValueError):
-        expand_level(x, 5, 1.2, blur=np.ones(5) / 5)
+        expand_level(x, 5, F.poly_exp_constants(5, 1.2), blur=np.ones(5) / 5)
     with pytest.raises(ValueError):
         pyr_blur(x.double(), np.ones(3) / 3)
     with pytest.raises(ValueError):

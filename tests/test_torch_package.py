@@ -1,8 +1,10 @@
 """Package-level properties of the port: it imports neither JAX nor the JAX
-package, its CLI runs every flag combination of the JAX CLI and never drops
-to the CPU, its configuration round-trips the JAX package's, and its
-kernels are built for Hopper (sm_90a)."""
+package, its kernel layer imports nothing above it, its CLI runs every flag
+combination of the JAX CLI and never drops to the CPU, its configuration
+round-trips the JAX package's, and its kernels are built for Hopper
+(sm_90a)."""
 
+import ast
 import dataclasses
 import subprocess
 import sys
@@ -19,13 +21,11 @@ from flowdenoising_tpu.config import FlowConfig as JFlowConfig
 from flowdenoising_tpu_torch import cli
 from flowdenoising_tpu_torch.config import FilterConfig, FlowConfig, from_reference
 from flowdenoising_tpu_torch.io.mrc import write_mrc
+from flowdenoising_tpu_torch.ops.compose import compose_tap
 from flowdenoising_tpu_torch.ops.cuda import build
-from flowdenoising_tpu_torch.ops.cuda.compose import compose_tap
-from flowdenoising_tpu_torch.ops.cuda.sample import displace_sample
-from flowdenoising_tpu_torch.ops.cuda.uf import update_flow
-from flowdenoising_tpu_torch.ops.cuda.um import update_matrices
-from flowdenoising_tpu_torch.ops.cuda.umuf import umuf_iterate
-from flowdenoising_tpu_torch.ops.farneback import farneback_flow
+from flowdenoising_tpu_torch.ops.farneback import (
+    farneback_flow, umuf_iterate, update_flow, update_matrices)
+from flowdenoising_tpu_torch.ops.warp import displace_sample
 
 torch.set_num_threads(1)
 
@@ -49,6 +49,39 @@ def test_imports_no_jax():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert int(out.stdout.split("LOADED ")[1].split()[0]) >= 20
+
+
+PACKAGE = REPO / "flowdenoising_tpu_torch"
+
+
+def _imports(path: Path) -> list[str]:
+    """Every module or name ``path`` imports from the package, imports
+    inside functions included, as dotted paths."""
+    out = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            out += [f"{node.module}.{a.name}" for a in node.names]
+    return [n for n in out if n.startswith(PACKAGE.name + ".")]
+
+
+def test_the_kernel_layer_imports_nothing_above_it():
+    # ops/cuda only launches: it reaches nothing of the package outside
+    # itself but the span helpers; nothing outside ops reaches round the
+    # ops layer into it
+    cuda = f"{PACKAGE.name}.ops.cuda"
+    allowed = (cuda + ".", f"{PACKAGE.name}.utils.tracing.")
+    bad = []
+    for path in sorted(PACKAGE.rglob("*.py")):
+        rel = path.relative_to(PACKAGE).parts
+        for name in _imports(path):
+            if rel[:2] == ("ops", "cuda"):
+                if not (name + ".").startswith(allowed):
+                    bad.append(f"{'/'.join(rel)}: {name}")
+            elif rel[0] != "ops" and (name + ".").startswith(cuda + "."):
+                bad.append(f"{'/'.join(rel)}: {name}")
+    assert not bad, bad
 
 
 @pytest.fixture

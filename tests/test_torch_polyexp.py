@@ -7,11 +7,13 @@ the kernels K-polyexp and K-pyr-blur (``ops/cuda/polyexp.py``,
 
 - a CPU stack and a bfloat16 one take the plain chain, which launches no
   kernel and copies its index vectors (``fdt.drain.blur_index``) as before;
-- the route's predicate on devices and dtypes: a CUDA float32 stack takes
-  the kernels whatever the configuration;
-- the kernels' level loop (``ops.cuda.polyexp.pyramid``), whose wrappers
-  run the plain versions on CPU tensors, equals the plain pyramid bit for
-  bit, narrow planes and pads wider than the axis included;
+- the route's predicate on devices and dtypes (``ops.device.use_kernel``
+  with ``float32``): a CUDA float32 stack takes the kernels whatever the
+  configuration, and a stack on another device neither;
+- the level loop, which runs each level's operations in the kernels' order
+  (their plain versions on CPU tensors), equals the plain pyramid
+  (``image_pyramid``, then ``poly_expand`` a level) bit for bit, narrow
+  planes and pads wider than the axis included;
 - the plain pyramid against the JAX package's at narrow planes;
 - the border index map the kernels compute, against numpy's.
 
@@ -32,7 +34,8 @@ from flowdenoising_tpu.ops import farneback as JF
 from flowdenoising_tpu_torch.config import FlowConfig, from_reference
 from flowdenoising_tpu_torch.ops import cuda as K
 from flowdenoising_tpu_torch.ops import farneback as F
-from flowdenoising_tpu_torch.ops.cuda import polyexp as P
+from flowdenoising_tpu_torch.ops.blur import pyr_blur
+from flowdenoising_tpu_torch.ops.device import use_kernel
 from flowdenoising_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
@@ -63,7 +66,7 @@ def test_cpu_and_bf16_stacks_take_the_plain_chain(dtype):
         out = F.polyexp_pyramid(img, cfg)
     drains = sum(1 for e in prof.events()
                  if e.name == tracing.DRAIN_PREFIX + "blur_index")
-    assert not P.takes(img)
+    assert not use_kernel(img, "polyexp_pyramid", float32=True)
     assert K.LAUNCHES == before
     assert drains == BLUR_INDEX_A_LEVEL * len(out) == 33
     for o, r in zip(out, _plain(img, cfg)):
@@ -86,7 +89,12 @@ def _stack_on(device, dtype, shape=(4, 256, 256)):
     ("meta", torch.float32, False),
 ])
 def test_the_route_takes_a_cuda_float32_stack(device, dtype, takes):
-    assert P.takes(_stack_on(device, dtype)) is takes
+    stack = _stack_on(device, dtype)
+    if device == "meta":       # neither the kernels nor the plain chain
+        with pytest.raises(ValueError, match="no kernel"):
+            use_kernel(stack, "polyexp_pyramid", float32=True)
+    else:
+        assert use_kernel(stack, "polyexp_pyramid", float32=True) is takes
 
 
 @pytest.mark.parametrize("fields", [
@@ -99,7 +107,7 @@ def test_the_kernels_level_loop_takes_any_configuration(fields):
     memory where the fused kernels stop, give the plain pyramid's levels."""
     img = _stack((2, 300, 300), seed=3)
     cfg = FlowConfig(**fields)
-    out = P.pyramid(img, cfg)
+    out = F.polyexp_pyramid(img, cfg)
     ref = _plain(img, cfg)
     assert len(out) == len(ref) == cfg.clamped_levels(300, 300) + 1
     for o, r in zip(out, ref):
@@ -114,7 +122,7 @@ def test_the_kernels_level_loop_is_the_plain_pyramid(shape, poly_sigma):
     for levels in range(4):
         cfg = FlowConfig(levels=levels, min_size=1, poly_sigma=poly_sigma)
         before = dict(K.LAUNCHES)
-        out = P.pyramid(img, cfg)
+        out = F.polyexp_pyramid(img, cfg)
         ref = _plain(img, cfg)
         assert K.LAUNCHES == before      # CPU tensors: the plain versions
         assert len(out) == len(ref) == cfg.clamped_levels(*shape[1:]) + 1
@@ -125,9 +133,9 @@ def test_the_kernels_level_loop_is_the_plain_pyramid(shape, poly_sigma):
 def test_the_wrappers_take_no_other_device():
     img = torch.zeros(2, 8, 8, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        P.expand_level(img, 5, 1.2)
+        F.expand_level(img, 5, 1.2)
     with pytest.raises(ValueError, match="no kernel"):
-        P.pyr_blur(img, np.ones(3) / 3)
+        pyr_blur(img, np.ones(3) / 3)
 
 
 @pytest.mark.parametrize("h,w,levels", [(8, 1030, 2), (8, 1030, 3),

@@ -20,6 +20,7 @@ from flowdenoising_tpu_torch.config import FlowConfig
 from flowdenoising_tpu_torch.ops import cuda as K
 from flowdenoising_tpu_torch.ops import resize as R
 from flowdenoising_tpu_torch.ops.cuda import resize as KR
+from flowdenoising_tpu_torch.ops.device import use_kernel
 
 # the planes of the benchmark's passes (165x768x1024, 184x630x630) and the
 # auto probe's buckets
@@ -119,7 +120,7 @@ def test_a_cpu_tensor_takes_the_dense_products(dtype, monkeypatch):
     for fn, kind, hw in ((R.resize_linear, "linear", (20, 18)),
                          (R.resize_area, "area", (5, 9))):
         m = R._MATRICES[kind]
-        assert not KR.takes(x)
+        assert not use_kernel(x, "resize", float32=True)
         assert torch.equal(fn(x, hw), R._apply_separable(
             x, m(40, hw[0]), m(36, hw[1])))
     assert K.LAUNCHES["resize"] == before
@@ -127,6 +128,8 @@ def test_a_cpu_tensor_takes_the_dense_products(dtype, monkeypatch):
 
 def test_the_route_reads_device_and_dtype():
     x = torch.zeros((2, 8, 8))
-    assert not KR.takes(x) and not KR.takes(x.to(torch.bfloat16))
+    assert not use_kernel(x, "resize", float32=True)
+    assert not use_kernel(x.to(torch.bfloat16), "resize", float32=True)
+    table = R.device_table("linear", 8, 4, x.device)
     with pytest.raises(ValueError, match="on the card"):
-        KR.resize(x, "linear", (4, 4))
+        KR.resize(x, (4, 4), table, table)

@@ -17,8 +17,8 @@ from flowdenoising_tpu.ops.warp import (
     bilinear_displace_windowed, bilinear_sample as j_bilinear_sample)
 
 from flowdenoising_tpu_torch.ops import cuda as K
-from flowdenoising_tpu_torch.ops.cuda.sample import displace_sample
-from flowdenoising_tpu_torch.ops.warp import warp_slices
+from flowdenoising_tpu_torch.ops.cuda.sample import check_shapes
+from flowdenoising_tpu_torch.ops.warp import displace_sample, warp_slices
 
 torch.set_num_threads(1)
 
@@ -92,6 +92,6 @@ def test_cpu_wrapper_counts_no_launch_and_checks_shapes():
     _port(src, u, v, 2)
     assert K.LAUNCHES["sample"] == before
     with pytest.raises(ValueError):
-        displace_sample(torch.from_numpy(src), torch.from_numpy(u)[0],
-                        torch.from_numpy(v)[0], 2)
+        check_shapes(torch.from_numpy(src), torch.from_numpy(u)[0],
+                     torch.from_numpy(v)[0])
 

@@ -30,10 +30,9 @@ from split_tap import BF16, Tap, rb, split_sample, split_tap
 
 from flowdenoising_tpu_torch.ops import cuda as K
 from flowdenoising_tpu_torch.ops.blur import rounded
-from flowdenoising_tpu_torch.ops.cuda.sample import (
-    sample_split, sample_split_plain)
 from flowdenoising_tpu_torch.ops.warp import (
-    displace_sample, displace_sample_plain, displace_sample_xla, warp_slices)
+    displace_sample, displace_sample_plain, displace_sample_xla, sample_split,
+    sample_split_plain, warp_slices)
 
 torch.set_num_threads(1)
 
@@ -203,14 +202,14 @@ def test_cpu_wrapper_counts_no_launch_and_refuses_bad_inputs():
 
 
 def test_public_samplers_route_to_sample_split(monkeypatch):
-    # a bf16 source with no bound goes to K-sample-split's wrapper, every
-    # other call to K-sample's
-    from flowdenoising_tpu_torch.ops.cuda import sample as KS
+    # a bf16 source with no bound goes to K-sample-split's plain version
+    # (on the card its kernel), every other call to K-sample's
+    from flowdenoising_tpu_torch.ops import warp as W
     calls = []
     for name in ("sample_split", "displace_sample"):
-        fn = getattr(KS, name)
-        monkeypatch.setattr(KS, name, lambda *a, _fn=fn, _n=name, **k:
-                            calls.append(_n) or _fn(*a, **k))
+        fn = getattr(W, name + "_plain")
+        monkeypatch.setattr(W, name + "_plain", lambda *a, _fn=fn, _n=name,
+                            **k: calls.append(_n) or _fn(*a, **k))
     src, u, v = (torch.from_numpy(a) for a in _inputs(64, True, seed=2))
     u, v = u.unsqueeze(1), v.unsqueeze(1)
     displace_sample(src.to(BF16), u, v, None, device=CPU)

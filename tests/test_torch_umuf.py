@@ -23,8 +23,9 @@ from flowdenoising_tpu.ops.pallas import umuf as JU
 
 from flowdenoising_tpu_torch.ops import cuda as K
 from flowdenoising_tpu_torch.ops import farneback as F
+from flowdenoising_tpu_torch.ops.farneback import umuf_iterate
 from flowdenoising_tpu_torch.ops.cuda.umuf import (
-    MAX_PHASE1_WORK, SMEM_PER_BLOCK, SMEM_TWO_BLOCKS, plan_umuf, umuf_iterate,
+    MAX_PHASE1_WORK, SMEM_PER_BLOCK, SMEM_TWO_BLOCKS, plan_umuf,
     umuf_smem_bytes)
 
 torch.set_num_threads(1)

@@ -23,8 +23,7 @@ from flowdenoising_tpu_torch.ops import cuda as K
 from flowdenoising_tpu_torch.ops import farneback as F
 from flowdenoising_tpu_torch.ops.cuda.umuf import (
     SMEM_PER_BLOCK, SMEM_TWO_BLOCKS, plan_umuf, umuf_smem_bytes)
-from flowdenoising_tpu_torch.ops.cuda.umuf_split import (
-    plan_split, umuf_split_iterate)
+from flowdenoising_tpu_torch.ops.cuda.umuf_split import plan_split
 
 torch.set_num_threads(1)
 
@@ -150,14 +149,14 @@ def test_cpu_wrapper_counts_no_launch_and_refuses_bad_inputs():
     torch.testing.assert_close(out, F.split_iterate_plain(r0, r1, flow, 3, 5),
                                atol=0, rtol=0)
     with pytest.raises(ValueError):
-        umuf_split_iterate(r0[:, :4], r1[:, :4], flow, 1, 5)
+        F.split_iterate(r0[:, :4], r1[:, :4], flow, 1, 5)
     with pytest.raises(ValueError):
-        umuf_split_iterate(r0, r1[:-1], flow[:-1], 1, 5)
+        F.split_iterate(r0, r1[:-1], flow[:-1], 1, 5)
     with pytest.raises(ValueError):
-        umuf_split_iterate(r0, r1, flow[:, :1], 1, 5)
+        F.split_iterate(r0, r1, flow[:, :1], 1, 5)
     meta = torch.empty(r0.shape, dtype=BF16, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        umuf_split_iterate(meta, meta, flow.to("meta"), 1, 5)
+        F.split_iterate(meta, meta, flow.to("meta"), 1, 5)
     assert K.LAUNCHES == before
 
 
