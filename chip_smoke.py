@@ -19,11 +19,14 @@ Phases, one or more lines of output each (any failure exits non-zero):
                JAX package's own kernel tests; times of both, the least
                time the card could take for the same work (bound), and for
                K-sample the time of torch.nn.functional.grid_sample on the
-               same sampling (the port never calls it).  K-umuf also at
-               winsize 15 and on planes smaller than its tile, its
-               main-path call at one iteration a launch against the
-               planner's default, and its time at each pyramid level of the
-               main path.  Then the packed
+               same sampling (the port never calls it).  K-umuf bit for bit
+               at every call, also at winsize 15 and on planes narrower
+               than its strip, its main-path call at one iteration a launch
+               against the planner's default, and its time at each level
+               call of the smoke paths and at the level-0 calls of the
+               benchmark's Z passes (165 x 768 x 1024, 184 x 630 x 630),
+               each beside its plan's phase-1 work, both r1 dtypes bit for
+               bit at those calls.  Then the packed
                forms (bf16 sources, --precision bfloat16) K-umuf-bf16,
                K-compose-bf16 (with and without the bf16 carry rounding) and
                K-um-bf16, each equal to its plain version bit for bit, timed
@@ -330,7 +333,7 @@ def phase_kernels(dev, seed: int) -> dict:
     from flowdenoising_tpu_torch.ops import farneback as F
     from flowdenoising_tpu_torch.ops.compose import compose_tap_plain
     from flowdenoising_tpu_torch.ops.cuda.compose import compose_tap
-    from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf, umuf_iterate
+    from flowdenoising_tpu_torch.ops.cuda.umuf import plan_strip, umuf_iterate
     from flowdenoising_tpu_torch.ops.cuda.sample import displace_sample
     from flowdenoising_tpu_torch.ops.warp import displace_sample_plain
 
@@ -404,44 +407,47 @@ def phase_kernels(dev, seed: int) -> dict:
     del src, flow, out, ref, fc, gx, gy, grid, src4
 
     # K-umuf: batch 16 at every level of a 256^2 plane with its d_k, iters 3,
-    # winsize 5, 7 and 15, and planes smaller than the tile; atol 5e-4, rtol
-    # 1e-4 (the design intends 0: the log line says whether it is)
-    def umuf_check(what, rr, flow, iters, d, ws, per_launch=None):
-        out = umuf_iterate(rr[0], rr[1], flow, iters, d, ws, per_launch)
-        ref = F.umuf_iterate_plain(rr[0], rr[1], flow, iters, d, ws)
+    # winsize 5, 7 and 15, and planes narrower than a strip; bit for bit the
+    # plain version, as at every call below
+    def umuf_check(what, rr, flow, iters, d, ws, per_launch=None, r1=None):
+        r1 = rr[1] if r1 is None else r1
+        out = umuf_iterate(rr[0], r1, flow, iters, d, ws, per_launch)
+        ref = F.umuf_iterate_plain(rr[0], r1, flow, iters, d, ws)
         torch.cuda.synchronize()
-        diff = (out - ref).abs()
-        e = float(diff.max())
-        require(bool((diff <= 5e-4 + 1e-4 * ref.abs()).all()),
-                f"K-umuf {what}: max abs err {e}")
-        return e, "bit-identical" if torch.equal(out, ref) else "NOT bit-identical"
+        e = float((out - ref).abs().max())
+        require(torch.equal(out, ref),
+                f"K-umuf {what}: not bit-identical (max abs err {e})")
+        return e
 
     def umuf_operands(b, h, w, d):
         imgs = t(r.normal(size=(2, b, h, w)) * 40)
         return (F.poly_expand(imgs, channel_first=True).contiguous(),
                 t(r.normal(size=(b, 2, h, w)) * 1.5 * d / 9))
 
+    def plan_text(p):
+        return (f"strip {p.strip_x} x {p.step_rows} rows, {p.threads} threads, "
+                f"{p.smem} B shared, {p.blocks} blocks an SM, launches "
+                f"{p.launches}, phase-1 work {p.phase1_work:.3f}x")
+
     err = 0.0
     for size, d in ((256, 9), (128, 5), (64, 3), (32, 2), (20, 2), (3, 2)):
         rr, flow = umuf_operands(16, size, size, d)
         for ws in (5, 7, 15):
-            plan = plan_umuf(size, size, ws, 3)
-            e, same = umuf_check(f"{size}^2 d={d} ws={ws}", rr, flow, 3, d, ws)
-            err = max(err, e)
+            plan = plan_strip(size, size, ws, 3)
+            err = max(err, umuf_check(f"{size}^2 d={d} ws={ws}", rr, flow, 3, d, ws))
             ms = cuda_ms(lambda: umuf_iterate(rr[0], rr[1], flow, 3, d, ws))
             pms = cuda_ms(lambda: F.umuf_iterate_plain(rr[0], rr[1], flow, 3, d, ws),
                           reps=3)
             print(f"[3 kernels] K-umuf (16,5,{size},{size}) d={d} ws={ws} iters=3, "
-                  f"tile {plan.tile_y}x{plan.tile_x} launches {plan.launches}: "
-                  f"max_abs_err {e:.3g} ({same}), kernel {ms:.4f} ms, plain "
+                  f"{plan_text(plan)}: bit-identical, kernel {ms:.4f} ms, plain "
                   f"{pms:.4f} ms", flush=True)
     # the main path's largest call: level 0 of a 256^3 pass, batch 256; then
     # the same call one iteration a launch (k = 1) against the planner's
     # default, interleaved k1, default, default, k1
     rr, flow = umuf_operands(256, 256, 256, 9)
-    plan = plan_umuf(256, 256, 5, 3)
-    e, same = umuf_check("main shape", rr, flow, 3, 9, 5)
-    e1, same1 = umuf_check("main shape k=1", rr, flow, 3, 9, 5, per_launch=1)
+    plan = plan_strip(256, 256, 5, 3)
+    err = max(err, umuf_check("main shape", rr, flow, 3, 9, 5),
+              umuf_check("main shape k=1", rr, flow, 3, 9, 5, per_launch=1))
     by_k = {1: [], plan.per_launch: []}
     for k in (1, plan.per_launch, plan.per_launch, 1):
         by_k[k].append(cuda_ms(lambda: umuf_iterate(rr[0], rr[1], flow, 3, 9, 5, k),
@@ -456,35 +462,45 @@ def phase_kernels(dev, seed: int) -> dict:
     times = "; ".join(f"k={k}: " + ", ".join(f"{v:.4f}" for v in vs) + " ms"
                       for k, vs in by_k.items())
     print(f"[3 kernels] K-umuf main-path call (256,5,256,256) d=9 ws=5 iters=3, "
-          f"tile {plan.tile_y}x{plan.tile_x}, {plan.threads} threads, "
-          f"{plan.smem} B shared: max_abs_err {e:.3g} ({same}; k=1 {e1:.3g}, "
-          f"{same1}), kernel {ms:.4f} ms at the default k={plan.per_launch} "
-          f"({times}), plain {pms:.4f} ms, bound {bms:.4f} ms ({by}); no single "
-          "library call", flush=True)
-    res["umuf"] = dict(max_abs_err=max(err, e, e1), ms=ms, plain_ms=pms,
+          f"{plan_text(plan)}: bit-identical (and at k=1), kernel {ms:.4f} ms at "
+          f"the default k={plan.per_launch} ({times}), plain {pms:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}); no single library call", flush=True)
+    res["umuf"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                        bound_ms=bms, bound_by=by, library_ms=None)
     # winsize 15 at the main shape: the planner's k against k = 3 forced
-    p15 = plan_umuf(256, 256, 15, 3)
-    e15, same15 = umuf_check("main shape ws=15", rr, flow, 3, 9, 15)
+    p15 = plan_strip(256, 256, 15, 3)
+    umuf_check("main shape ws=15", rr, flow, 3, 9, 15)
     t15 = {k: cuda_ms(lambda: umuf_iterate(rr[0], rr[1], flow, 3, 9, 15, k), reps=3)
            for k in (p15.per_launch, 3)}
-    p15k3 = plan_umuf(256, 256, 15, 3, 3)
-    print(f"[3 kernels] K-umuf (256,5,256,256) d=9 ws=15 iters=3: max_abs_err "
-          f"{e15:.3g} ({same15}); default k={p15.per_launch} tile "
-          f"{p15.tile_y}x{p15.tile_x} {t15[p15.per_launch]:.4f} ms; k=3 tile "
-          f"{p15k3.tile_y}x{p15k3.tile_x} (phase-1 work {p15k3.phase1_work:.2f}x) "
-          f"{t15[3]:.4f} ms", flush=True)
+    p15k3 = plan_strip(256, 256, 15, 3, 3)
+    print(f"[3 kernels] K-umuf (256,5,256,256) d=9 ws=15 iters=3: bit-identical; "
+          f"default k={p15.per_launch} {t15[p15.per_launch]:.4f} ms "
+          f"({plan_text(p15)}); k=3 {t15[3]:.4f} ms ({plan_text(p15k3)})",
+          flush=True)
     del rr, flow
-    # per-level times of the main path's calls at batch 256, for weighting by
-    # launches
-    for size, d in ((256, 9), (128, 5), (64, 3), (32, 2)):
-        rr, flow = umuf_operands(256, size, size, d)
-        lms = cuda_ms(lambda: umuf_iterate(rr[0], rr[1], flow, 3, d, 5))
-        lp = plan_umuf(size, size, 5, 3)
-        print(f"[3 kernels] K-umuf level (256,5,{size},{size}) d={d} ws=5 iters=3: "
-              f"{lms:.4f} ms, {len(lp.launches)} launch(es), tile "
-              f"{lp.tile_y}x{lp.tile_x}", flush=True)
+    # every level call of the smoke paths (batch = the edge at 256^3 and
+    # 512^3, d_k 9, 5, 3, 2 at D 8) and the cells' level-0 calls of the Z
+    # pass (EPFL CA1 165 x 768 x 1024, CZII 184 x 630 x 630, d 9), both r1
+    # dtypes bit for bit; timed beside the plan's phase-1 work and the bound
+    for b, h, w, d in ((256, 256, 256, 9), (256, 128, 128, 5), (256, 64, 64, 3),
+                       (256, 32, 32, 2), (512, 512, 512, 9), (512, 256, 256, 5),
+                       (512, 128, 128, 3), (512, 64, 64, 2),
+                       (165, 768, 1024, 9), (184, 630, 630, 9)):
+        rr, flow = umuf_operands(b, h, w, d)
+        r1b = rr[1].to(torch.bfloat16)
+        what = f"level ({b},5,{h},{w}) d={d}"
+        err = max(err, umuf_check(what, rr, flow, 3, d, 5),
+                  umuf_check(what + " r1 bf16", rr, flow, 3, d, 5, r1=r1b))
+        del r1b
+        lms = cuda_ms(lambda: umuf_iterate(rr[0], rr[1], flow, 3, d, 5), reps=5)
+        lbms, _ = bound(4 * (2 * rr[0].numel() + 2 * flow.numel()),
+                        3 * umuf_flops(5) * (flow.numel() // 2))
+        print(f"[3 kernels] K-umuf {what} ws=5 iters=3: bit-identical, both r1 "
+              f"dtypes; {lms:.4f} ms, bound {lbms:.4f} ms; "
+              f"{plan_text(plan_strip(h, w, 5, 3))}", flush=True)
         del rr, flow
+        torch.cuda.empty_cache()
+    res["umuf"]["max_abs_err"] = err
 
     # K-compose: flow atol 1e-5, accumulator atol 1e-4 (the bars of the JAX
     # package's compose kernel test); links of scale 0.6 (adjacent drift),
@@ -1267,7 +1283,7 @@ def expected_launches(shape, cfg, windows=(1, 1, 1), passes=(0, 1, 2)) -> dict:
     the dense products.  Pass i runs once per window, ``windows[i]`` times (slabs, or a stream's windows with the recomputed
     tail); only the passes in ``passes`` run (a resumed run)."""
     from flowdenoising_tpu_torch.kernels import get_gaussian_kernels
-    from flowdenoising_tpu_torch.ops.cuda.umuf import plan_umuf
+    from flowdenoising_tpu_torch.ops.cuda.umuf import plan_strip
     from flowdenoising_tpu_torch.ops.cuda.umuf_split import plan_split
     from flowdenoising_tpu_torch.ops.farneback import _packed_at_level, split_route
     from flowdenoising_tpu_torch.ops.resize import pyramid_sizes
@@ -1308,8 +1324,8 @@ def expected_launches(shape, cfg, windows=(1, 1, 1), passes=(0, 1, 2)) -> dict:
         n["resize"] += seeded
         for k, (hk, wk) in enumerate(sizes):
             form = "umuf_bf16" if _packed_at_level(adj, k, hk, wk) else "umuf"
-            n[form] += solves * len(plan_umuf(hk, wk, f.winsize,
-                                              f.iterations).launches)
+            n[form] += solves * len(plan_strip(hk, wk, f.winsize,
+                                               f.iterations).launches)
         if f.tap_mode == "compose":
             n[compose] += windows[i] if n_taps else 0
         else:

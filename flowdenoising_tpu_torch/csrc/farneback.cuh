@@ -1,8 +1,9 @@
-// The two phases of a Farneback iteration, shared by K-umuf (umuf.cu: all
-// iterations of a level in one launch, M and the flow carry kept in shared
-// memory), K-um (um.cu: phase 1, M written to device memory) and K-uf
-// (uf.cu: phase 2 on an M read from device memory); K-umuf-split
-// (umuf_split.cu) has its own phase 1 and takes phase 2 from here.  The
+// The two phases of a Farneback iteration, shared by K-um (um.cu: phase 1,
+// M written to device memory), K-uf (uf.cu: phase 2 on an M read from
+// device memory) and K-umuf-split (umuf_split.cu: its own phase 1, phase 2
+// from here).  K-umuf (umuf.cu: the strip sweep) runs phase 1's arithmetic
+// in its own copy, with its loads batched, and its own box sums; it takes
+// the border ramp and the helpers below from here.  The
 // plain PyTorch versions are flowdenoising_tpu_torch/ops/farneback.py:
 // update_matrices_plain and update_flow_plain.  The arithmetic is written in
 // the plain versions' order, for a build with -fmad=false.
@@ -318,9 +319,9 @@ __device__ __forceinline__ void box_solve_tile(float* m_s, int tx0, int ty0,
   box_solve(m_s, plane, sw, r, g, inv_ws2, U_out + p, V_out + p, W);
 }
 
-// Shared memory of one K-umuf or K-umuf-split block (umuf.cu,
-// umuf_split.cu): M (5 planes of (rh + r) x sw floats) and, when k > 1, the
-// flow carry (2 planes of rh x sw).
+// Shared memory of one K-umuf-split block (umuf_split.cu; umuf.cu's
+// fdt_umuf_smem reports it): M (5 planes of (rh + r) x sw floats) and, when
+// k > 1, the flow carry (2 planes of rh x sw).
 __host__ __device__ inline size_t umuf_smem_bytes(int rh, int sw, int r,
                                                   int k) {
   return sizeof(float) * ((size_t)5 * (rh + r) * sw +

@@ -9,7 +9,7 @@
 // K-umuf; this kernel serves the split iteration that the -v 2 stage report
 // times, as the JAX package's does.
 //
-// Per pixel (farneback.cuh: matrices_at, the code K-umuf runs): sample the
+// Per pixel (farneback.cuh: matrices_at, K-umuf's arithmetic too): sample the
 // five channels of r1 bilinearly at (x + u, y + v), u and v clamped to +-d
 // (no clamp when `clamp` is 0), replicate borders; mask with the in-plane
 // test on the UNCLAMPED flow; average the quadratic terms and add the flow

@@ -27,7 +27,7 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _COMPOSE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]
 _COMPOSE_RUN = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P]
-_UMUF = [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _F, _I, _I, _I, _I, _P]
+_UMUF = [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _F, _I, _I, _I, _P]
 _UM = [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P]
 # C entry -> (argument types, form).  A launcher takes the stream last,
 # returns a CUDA error code and counts under its form; a size query
@@ -51,6 +51,7 @@ ENTRIES = {
     "fdt_umuf": (_UMUF, "umuf"),
     "fdt_umuf_bf16": (_UMUF, "umuf_bf16"),
     "fdt_umuf_smem": ([_I, _I, _I, _I, _I, _I], None),
+    "fdt_umuf_strip_smem": ([_I, _I, _I, _I], None),
     "fdt_umuf_split": ([_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I,
                         _P], "umuf_split"),
     "fdt_update_flow": ([_P, _P, _I, _I, _I, _I, _F, _P], "uf"),
@@ -71,19 +72,15 @@ def reset_launches() -> None:
         LAUNCHES[form] = 0
 
 
-def bind(lib: ctypes.CDLL, name: str):
-    """The C entry ``name`` of ``lib`` with its C signature set."""
+@functools.cache
+def entry(name: str):
+    """The C entry ``name`` of the kernel library, built at first use, with
+    its C signature set."""
     argtypes, form = ENTRIES[name]
-    fn = getattr(lib, name)
+    fn = getattr(build.load_library(), name)
     fn.argtypes = argtypes
     fn.restype = _I if form else _L
     return fn
-
-
-@functools.cache
-def entry(name: str):
-    """The C entry ``name`` of the kernel library, built at first use."""
-    return bind(build.load_library(), name)
 
 
 def launch(name: str, device: torch.device, *args) -> None:
