@@ -74,12 +74,27 @@ def _hashes(root: Path) -> dict:
             for p in sorted((root / "benchmarks").rglob("*")) if p.is_file()}
 
 
-def test_a_new_config_mix_and_metric_are_found_as_new_files(tmp_path):
-    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
-    shutil.copytree(HERE, tmp_path / "benchmarks",
+def _copy_benchmark(root: Path) -> Path:
+    """``BENCHMARK.json`` and ``benchmarks/`` copied into ``root``; returns
+    the copy of ``benchmarks/``."""
+    shutil.copy(ROOT / "BENCHMARK.json", root)
+    shutil.copytree(HERE, root / "benchmarks",
                     ignore=shutil.ignore_patterns("__pycache__"))
+    return root / "benchmarks"
+
+
+def _add_entries(root: Path, **entries):
+    """Each list of ``entries`` appended to its key of the copy's
+    ``BENCHMARK.json``."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    for key, added in entries.items():
+        bench[key].extend(added)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
+def test_a_new_config_mix_and_metric_are_found_as_new_files(tmp_path):
+    here = _copy_benchmark(tmp_path)
     before = _hashes(tmp_path)
-    here = tmp_path / "benchmarks"
     config = json.loads((here / "configs/epfl_ca1_165x768x1024.json").read_text())
     config.update(name="tiny_8x40x40")
     config["volume"]["shape"] = [8, 40, 40]
@@ -92,19 +107,18 @@ def test_a_new_config_mix_and_metric_are_found_as_new_files(tmp_path):
         json.dumps({"max_err": 1e-6, "rms_err": 1e-7}))
     (here / "metrics/tiny.launches.py").write_text(
         "def read(trace):\n    return 2 * trace.launches()\n")
-    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
-    bench["configs"].append({"name": "tiny_8x40x40", "source": "x",
-                             "file": "benchmarks/configs/tiny_8x40x40.json",
-                             "reduced": [], "why": "x"})
-    bench["workloads"].append({"name": "tiny.symmetric",
-                               "config": "tiny_8x40x40",
-                               "traffic": "compose_symmetric_f32",
-                               "chips": 1, "why": "x"})
-    bench["per_layer"].append({"name": "tiny.launches", "unit": "launches",
-                               "better": "lower", "source": "device_trace",
-                               "layer": "pipeline", "moves": "mvoxel_s",
-                               "workloads": ["tiny.symmetric"]})
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    _add_entries(
+        tmp_path,
+        configs=[{"name": "tiny_8x40x40", "source": "x",
+                  "file": "benchmarks/configs/tiny_8x40x40.json",
+                  "reduced": [], "why": "x"}],
+        workloads=[{"name": "tiny.symmetric", "config": "tiny_8x40x40",
+                    "traffic": "compose_symmetric_f32", "chips": 1,
+                    "why": "x"}],
+        per_layer=[{"name": "tiny.launches", "unit": "launches",
+                    "better": "lower", "source": "device_trace",
+                    "layer": "pipeline", "moves": "mvoxel_s",
+                    "workloads": ["tiny.symmetric"]}])
 
     cell = spec.load("tiny.symmetric", root=tmp_path)
     assert cell.shape == (8, 40, 40)
@@ -274,6 +288,87 @@ def test_the_probe_layer_takes_what_the_probe_launched():
     assert spec.reader("probe.wall_ms")(before) is None
 
 
+def _resize_launches():
+    """Resizes' device work beside ``_events`` and ``_probe_events``: a
+    K-resize downsample launched by ctypes inside the pyramid, a dense
+    product launched by a host op, another by an op on a second thread, a
+    K-resize flow upsample, one launched inside the probe and one outside
+    every resize."""
+    E = trace.Event
+    return [E("_anonymous_namespace_::resize_kernel<2>(float const*)", True,
+              1_100, 1_300),
+            E("aten::bmm", False, 2_650, 2_660, thread=1, corr=12),
+            E("sm90_xmma_gemm_f32f32_f32f32_f32_nn_n", True, 2_700, 2_900,
+              linked=12),
+            E("aten::bmm", False, 2_670, 2_680, thread=2, corr=13),
+            E("sm90_xmma_gemm_f32f32_f32f32_f32_nn_n", True, 2_900, 2_950,
+              linked=13),
+            E("_anonymous_namespace_::resize_tile_kernel(float const*)",
+              True, 6_000, 6_300),
+            E("_anonymous_namespace_::resize_tile_kernel(float const*)",
+              True, 9_982, 9_985),
+            E("_anonymous_namespace_::resize_kernel<0>(float const*)", True,
+              7_000, 7_100),
+            E("fdt.pass", False, 20, 8_900, thread=1),
+            E("fdt.drain.input", False, 2_940, 2_990, thread=1)]
+
+
+def _resize_spans():
+    """The program's ``fdt.resize`` ranges around the first four launches
+    of ``_resize_launches`` and the probe's: each host span on the loop's
+    thread, and its device mirror where the range launched by ctypes."""
+    E = trace.Event
+    return [E("fdt.resize", False, 1_050, 1_090, thread=1),
+            E("fdt.resize", True, 1_100, 1_300),
+            E("fdt.resize", False, 2_640, 2_700, thread=1),
+            E("fdt.resize", True, 2_700, 2_900),
+            E("fdt.resize", False, 5_900, 5_950, thread=1),
+            E("fdt.resize", True, 6_000, 6_300),
+            E("fdt.resize", False, 9_962, 9_968, thread=1),
+            E("fdt.resize", True, 9_982, 9_985)]
+
+
+def _resize_traces():
+    """The window without and with the ``fdt.resize`` ranges."""
+    base = _events(1) + _probe_events() + _resize_launches()
+    return (trace.Trace(base, 1, _Cell()),
+            trace.Trace(base + _resize_spans(), 1, _Cell()))
+
+
+def test_resize_ms_reads_what_was_launched_in_the_resize_range():
+    without, t = _resize_traces()
+    read = spec.reader("resize.ms")
+    # the downsample and the flow upsample by the range's device mirror,
+    # the thread-1 product by its op; not the second thread's product
+    # (inside the mirror, but its op is not in the range), not the probe's
+    # K-resize, not the launch and the gemm outside every range
+    assert read(t) == pytest.approx((200 + 200 + 300) * 1e-6)
+    assert read(without) is None
+    assert read(trace.Trace(_events(1), 1, _Cell())) is None
+    in_resize = t.launched_in(trace.RESIZE_RANGE)
+    by_start = {e.start: e for e in t.work}
+    assert [in_resize(by_start[a]) for a in
+            (1_100, 2_700, 2_900, 6_000, 9_982, 7_000, 2_500)] == [
+        True, True, False, True, True, False, False]
+    assert t.launched_in(trace.PROBE_SPAN)(by_start[9_982])
+
+
+def test_the_resize_ranges_move_no_layer_and_no_other_reading():
+    without, t = _resize_traces()
+    for name in (trace.PROBE_LAYER,) + trace.LAYERS:
+        assert t.layer_ms(name) == without.layer_ms(name), name
+    assert t.launches() == without.launches()
+    assert t.busy == without.busy
+    read = 0
+    for m in spec.benchmark()["per_layer"]:
+        if m["name"] == "resize.ms":
+            continue
+        value = spec.reader(m["name"])(t)
+        assert value == spec.reader(m["name"])(without), m["name"]
+        read += value is not None
+    assert read >= 10
+
+
 def test_a_roofline_share_is_unchanged_by_more_launches():
     one = spec.reader("tap_solve.roofline_pct")(trace.Trace(_events(1), 1,
                                                             _Cell()))
@@ -366,8 +461,13 @@ def test_the_windowed_reference_is_the_ports_slabbed_path(flow):
     assert torch.equal(out, ref)
 
 
-@pytest.mark.parametrize("workload", [w["name"] for w in
-                                      spec.benchmark()["workloads"]])
+# The cells measured before the reference took windows.  A later cell may
+# take several (test_every_cells_reference_windows_cover_each_pass).
+ONE_WINDOW = ("epfl.solve", "czii.compose", "czii.solve", "epfl.compose",
+              "czii.auto")
+
+
+@pytest.mark.parametrize("workload", ONE_WINDOW)
 def test_every_cells_passes_run_whole_in_full_blocks(workload):
     # the budgets leave the cells' reference arithmetic as it was before
     # the windows: one window a pass, BLOCK planes a tap solve
@@ -375,6 +475,74 @@ def test_every_cells_passes_run_whole_in_full_blocks(workload):
     for n, h, w, ks2 in work.passes(cell.shape, cell.config["sigma"]):
         assert plain.windows(n, h, w, ks2) == [(0, n)]
         assert plain.block_planes(h, w) == plain.BLOCK
+
+
+def reference_windows(shape, sigma) -> list:
+    """The reference's windows of each pass of a ``shape`` volume, checked:
+    they tile the pass's output planes in order, with no gap and no
+    overlap; each window's planes and its 2 ks2 halo planes fit
+    ``WINDOW_PIXELS``, or it holds one output plane; its tap-solve blocks
+    hold 1 to ``BLOCK`` planes, within ``PIXELS`` where more than one."""
+    found = []
+    for n, h, w, ks2 in work.passes(shape, sigma):
+        spans = plain.windows(n, h, w, ks2)
+        assert spans[0][0] == 0 and spans[-1][1] == n
+        assert [a for a, _ in spans[1:]] == [b for _, b in spans[:-1]]
+        for a, b in spans:
+            assert b > a
+            assert (b - a + 2 * ks2) * h * w <= plain.WINDOW_PIXELS or (
+                b - a == 1)
+        block = plain.block_planes(h, w)
+        assert 1 <= block <= plain.BLOCK
+        assert block * h * w <= plain.PIXELS or block == 1
+        found.append(spans)
+    return found
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in
+                                      spec.benchmark()["workloads"]])
+def test_every_cells_reference_windows_cover_each_pass(workload):
+    cell = spec.load(workload)
+    assert len(reference_windows(cell.shape, cell.config["sigma"])) == 3
+
+
+FULL_FRAME = (256, 1536, 2048)
+
+
+def test_a_full_frame_cell_is_added_as_new_files(tmp_path):
+    # the EPFL CA1 section's whole planes, 256 slices deep, on solve_f32:
+    # a configuration, a cell and its limits as new files and entries;
+    # only planned here, no volume made
+    here = _copy_benchmark(tmp_path)
+    before = _hashes(tmp_path)
+    name = "epfl_ca1_256x1536x2048"
+    config = json.loads((here / "configs/epfl_ca1_165x768x1024.json")
+                        .read_text())
+    config.update(name=name, reduced=["volume"])
+    config["volume"].update(shape=list(FULL_FRAME), blobs=116)
+    (here / f"configs/{name}.json").write_text(json.dumps(config))
+    (here / "limits/epfl_full.solve.json").write_text(
+        (here / "limits/epfl.solve.json").read_text())
+    _add_entries(
+        tmp_path,
+        configs=[{"name": name, "source": "x",
+                  "file": f"benchmarks/configs/{name}.json",
+                  "reduced": ["volume"], "why": "x"}],
+        workloads=[{"name": "epfl_full.solve", "config": name,
+                    "traffic": "solve_f32", "chips": 1, "why": "x"}])
+
+    cell = spec.load("epfl_full.solve", root=tmp_path)
+    assert cell.shape == FULL_FRAME and cell.flow["tap_mode"] == "solve"
+    assert cell.limits == spec.load("epfl.solve").limits
+    assert cell.per_layer
+    # Z: 29 output planes a window; Y: 256; X: 346; the Z pass's tap
+    # solves in blocks of 32 planes
+    spans = reference_windows(cell.shape, cell.config["sigma"])
+    assert [len(s) for s in spans] == [9, 6, 6]
+    assert [s[0][1] for s in spans] == [29, 256, 346]
+    assert plain.block_planes(*FULL_FRAME[1:]) == 32
+    after = _hashes(tmp_path)
+    assert {p: h for p, h in after.items() if p in before} == before
 
 
 def test_a_sound_run_is_correct():

@@ -17,6 +17,11 @@ event into exactly one layer.
    transposes) to the pipeline.
 6. The rest is other elementwise work (casts, flow scaling, the tap FMA).
 
+Rules 1 and 4 test a range by ``Trace.launched_in``.  Metrics may apply
+the same test to other ranges beside the rule, as ``resize.ms`` does to the
+program's ``fdt.resize``: such a reading crosses the layers and moves no
+event between them.
+
 Profiler ranges mirrored on the device (a device event with the name of a
 host event) span kernels and are not work.  Busy time is the union of the
 device events' intervals inside the benchmark's ``bench.window`` span.
@@ -32,6 +37,9 @@ WINDOW_SPAN = "bench.window"
 VOLUME_SPAN = "bench.denoise"
 TO_HOST_SPAN = "bench.to_host"
 PROBE_SPAN = "bench.probe"
+# each separable resize of the program, both routes; read by ``resize.ms``
+# alone, never by the rule
+RESIZE_RANGE = "fdt.resize"
 
 KERNELS = (
     (re.compile(r"\bumuf_kernel\b"), "tap solve"),
@@ -97,25 +105,11 @@ class Trace:
                              f"{len(window)}")
         self.lo, self.hi = window[0].start, window[0].end
         self.thread = window[0].thread
-        ops = {e.corr: e for e in host if e.corr > 0 and not e.linked}
-
-        def launched_in(name: str):
-            """Whether a device event was launched inside range ``name``."""
-            spans = [(e.thread, e.start, e.end) for e in host
-                     if e.name == name]
-            device_spans = [(e.start, e.end) for e in events
-                            if e.device and e.name == name]
-
-            def test(ev: Event) -> bool:
-                op = ops.get(ev.linked)
-                if op is not None:
-                    return any(t == op.thread and lo <= op.start <= hi
-                               for t, lo, hi in spans)
-                return any(lo <= ev.start <= hi for lo, hi in device_spans)
-            return test
-
-        in_probe = launched_in(PROBE_SPAN)
-        in_expansion = launched_in(EXPANSION_RANGE)
+        self._host_events = host
+        self._device_events = [e for e in events if e.device]
+        self._ops = {e.corr: e for e in host if e.corr > 0 and not e.linked}
+        in_probe = self.launched_in(PROBE_SPAN)
+        in_expansion = self.launched_in(EXPANSION_RANGE)
         self.work = [e for e in events if e.device and e.name not in names
                      and e.end > self.lo and e.start < self.hi]
         self.layer_ns = dict.fromkeys((PROBE_LAYER,) + LAYERS, 0)
@@ -128,6 +122,26 @@ class Trace:
                           for e in self.work)
         self.host = sorted((e for e in host if e.thread == self.thread),
                            key=lambda e: (e.start, -e.end))
+
+    def launched_in(self, name: str):
+        """A test of whether a device event was launched inside range
+        ``name``: by the host op that launched it (its thread and start
+        inside one of the range's host spans), or, for an event launched
+        outside any torch op, as a ctypes launch is, by its start inside
+        one of the range's device mirrors."""
+        spans = [(e.thread, e.start, e.end) for e in self._host_events
+                 if e.name == name]
+        device_spans = [(e.start, e.end) for e in self._device_events
+                        if e.name == name]
+        ops = self._ops
+
+        def test(ev: Event) -> bool:
+            op = ops.get(ev.linked)
+            if op is not None:
+                return any(t == op.thread and lo <= op.start <= hi
+                           for t, lo, hi in spans)
+            return any(lo <= ev.start <= hi for lo, hi in device_spans)
+        return test
 
     @property
     def window_s(self) -> float:
